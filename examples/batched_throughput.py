@@ -1,4 +1,4 @@
-"""Batched scenario throughput: the TPU scaling story.
+"""Batched scenario throughput: solves/s against the batch size.
 
 Sweeps the scenario batch size for vmapped constrained-cartpole IP solves
 (no reference equivalent — the reference is strictly one solve at a time).
@@ -16,15 +16,15 @@ import jax.numpy as jnp
 import ipoc_tpu
 from ipoc_tpu.models import cartpole
 from ipoc_tpu.solvers.batched import make_batch, solve_batch
+from ipoc_tpu.utils.compile_cache import use_compile_cache
 
 
 def main():
+    use_compile_cache()
     H = int(os.environ.get("HORIZON", "100"))
     ocp = cartpole.make_ocp(1.0 / H)
     x0 = cartpole.initial_state(jnp.float32)
     cfg = ipoc_tpu.FAST_CONFIG
-
-    import numpy as np
 
     for B in (1, 8, 32, 128, 512):
         u0, x0b = make_batch(
@@ -32,11 +32,9 @@ def main():
             dtype=jnp.float32,
         )
         f = jax.jit(lambda u, x: solve_batch(ocp, u, x, cfg))
-        sol = f(u0, x0b)
-        np.asarray(sol.iterations)
+        jax.block_until_ready(f(u0, x0b))
         t0 = time.perf_counter()
-        sol = f(u0, x0b)
-        np.asarray(sol.iterations)
+        sol = jax.block_until_ready(f(u0, x0b))
         dt = time.perf_counter() - t0
         print(
             f"B={B:5d}: {dt*1e3:8.1f} ms/batch  {B/dt:9.1f} solves/s  "
@@ -56,11 +54,9 @@ def main():
     )
     fm = jax.jit(lambda u, x: solve_stream_multigrid(
         ocp, ocp_c, 4, u, x, ipoc_tpu.BATCH_CONFIG, lanes=B))
-    sol = fm(u0, x0b)
-    np.asarray(sol.iterations)
+    jax.block_until_ready(fm(u0, x0b))
     t0 = time.perf_counter()
-    sol = fm(u0, x0b)
-    np.asarray(sol.iterations)
+    jax.block_until_ready(fm(u0, x0b))
     dt = time.perf_counter() - t0
     print(
         f"multigrid stream (lanes={B}, pool={N}): {dt:6.3f} s  "

@@ -22,9 +22,11 @@ import jax.numpy as jnp
 
 import ipoc_tpu
 from ipoc_tpu.models import double_integrator
+from ipoc_tpu.utils.compile_cache import use_compile_cache
 
 
 def main():
+    use_compile_cache()
     ocp = double_integrator.make_ocp(0.1)
     horizon = 40
     x0 = jnp.array([2.0, 1.0])

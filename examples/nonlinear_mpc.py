@@ -33,10 +33,11 @@ import numpy as np
 import ipoc_tpu
 from ipoc_tpu.models import pendulum
 from ipoc_tpu.mpc import nmpc_loop
-from ipoc_tpu.utils.timing import sync
+from ipoc_tpu.utils.compile_cache import use_compile_cache
 
 
 def main():
+    use_compile_cache()
     dt = 0.02
     ocp = pendulum.make_ocp(dt)
     # Warm-started resolves converge in a handful of iterations; cap tightly.
@@ -52,64 +53,23 @@ def main():
     if args.batch > 1:
         # Batched NMPC: B independent closed-loop controllers stepping in
         # lockstep — the amortized-throughput story (each step is a
-        # warm-started IP resolve).  With >= 1024 controllers on TPU/f32
-        # the replan step runs through the packed mega-kernel batch
-        # resolver (ONE resident launch per k-block; 2048 cartpole H=100
-        # controllers replan in 7.4 ms, docs/PERFORMANCE.md r4).
-        from ipoc_tpu.solvers.packed_stream import (
-            batch_packed_eligible,
-            solve_batch_packed,
-        )
-
+        # warm-started IP resolve; on the GPU in float32 every Newton
+        # iteration runs the fused kernel across the controllers).
         key = jax.random.PRNGKey(0)
         x0b = x0[None, :] + 0.05 * jax.random.normal(
             key, (args.batch, x0.shape[0]), jnp.float32
         )
         u0b = jnp.zeros((args.batch, args.horizon, 1), jnp.float32)
-        if batch_packed_eligible(cfg, jnp.float32, x0.shape[-1],
-                                 1, args.horizon, args.batch):
-            # r5 warm barrier re-entry: first resolve on the full cold
-            # schedule to convergence, later resolves re-enter at
-            # bp=0.02 from the controller's own previous plan (4096
-            # cartpole H=100 controllers replan in 8.7 ms <= the 10 ms
-            # budget; docs/PERFORMANCE.md round-5 NMPC section).
-            from ipoc_tpu.mpc import nmpc_loop_batched_warm
-
-            wcfg = ipoc_tpu.BATCH_CONFIG.replace(max_newton_iters=12)
-
-            def solve_full(u_warm, x):
-                u, _ = solve_batch_packed(ocp, u_warm, x,
-                                          ipoc_tpu.BATCH_CONFIG, k_block=8)
-                return u
-
-            def solve_warm(u_warm, x):
-                u, _ = solve_batch_packed(ocp, u_warm, x, wcfg, k_block=8,
-                                          bp_entry=0.02)
-                return u
-
-            loop = jax.jit(
-                lambda x, u: nmpc_loop_batched_warm(
-                    solve_full, solve_warm, ocp.dynamics, x, u, args.steps)
+        loop = jax.jit(
+            jax.vmap(
+                lambda x, u: nmpc_loop(solve, ocp.dynamics, x, u,
+                                       args.steps)
             )
-            batched_layout = True
-        else:
-            loop = jax.jit(
-                jax.vmap(
-                    lambda x, u: nmpc_loop(solve, ocp.dynamics, x, u,
-                                           args.steps)
-                )
-            )
-            batched_layout = False
-        xs, us = loop(x0b, u0b)
-        sync(xs)
+        )
+        jax.block_until_ready(loop(x0b, u0b))
         t0 = time.perf_counter()
-        xs, us = loop(x0b, u0b)
-        sync(xs)
+        xs, us = jax.block_until_ready(loop(x0b, u0b))
         wall = time.perf_counter() - t0
-        if batched_layout:
-            # batched layout is (steps, B, ...); normalize to (B, steps, ...)
-            xs = jnp.swapaxes(xs, 0, 1)
-            us = jnp.swapaxes(us, 0, 1)
         n_resolves = args.batch * args.steps
         print(
             f"{args.batch} controllers x {args.steps} MPC steps in "
@@ -123,11 +83,9 @@ def main():
     loop = jax.jit(
         lambda x, u: nmpc_loop(solve, ocp.dynamics, x, u, args.steps)
     )
-    xs, us = loop(x0, u_init)
-    sync(xs)
+    jax.block_until_ready(loop(x0, u_init))
     t0 = time.perf_counter()
-    xs, us = loop(x0, u_init)
-    sync(xs)
+    xs, us = jax.block_until_ready(loop(x0, u_init))
     wall = time.perf_counter() - t0
     print(
         f"{args.steps} MPC steps in {wall:.3f}s "

@@ -1,34 +1,30 @@
-"""Speed-of-light (roofline / MFU) accounting for the throughput path.
+"""Speed-of-light (roofline) accounting for the throughput path.
 
-Answers "is X solves/s fast, or 10x off?" (VERDICT r1 missing #4) by
-putting the measured headline against chip peaks:
+Answers "is X solves/s fast, or 10x off?" by putting a measured rate
+against the device's published peaks:
 
 1. Counts the algorithmic FLOPs of ONE Newton iteration of the benchmark
    configuration with XLA's own cost analysis on the UNFUSED one-iteration
    program (``flat_lane_iter`` with the plain-scan evaluator — numerically
-   identical math to the fused Pallas path, so its FLOP count is the
+   identical math to the fused kernel path, so its FLOP count is the
    honest numerator for the kernel path too, which XLA cannot inspect).
-2. Multiplies by measured {stream steps x lanes} or {solves/s x mean
-   iterations} to get achieved FLOP/s, and divides by peak.
-3. Reports the analytic per-lane working set and achieved HBM GB/s, and
-   classifies the step as compute-, bandwidth-, or overhead-bound.
+2. Multiplies by measured {solves/s x mean iterations} to get achieved
+   FLOP/s, and divides by the float32 peak of the device it runs on.
+3. Reports the analytic per-lane working set and achieved device-memory
+   bandwidth, and classifies the step as compute-, bandwidth-, or
+   overhead-bound.
 
-Peaks default to TPU v5e (v5 lite): 197 TFLOP/s bf16 matmul, 819 GB/s
-HBM.  The solver runs f32 with ``jax_default_matmul_precision=highest``
-(~3 bf16 MXU passes per f32 product -> f32-effective matmul peak ~ 1/3 of
-bf16); the VPU f32 elementwise peak is ~ (8, 128)-lane * clock, far below
-the MXU.  Because the per-stage matrices here are tiny (nx <= 13), the
-fused kernels execute almost everything on the VPU — an MXU-normalized
-"MFU" therefore understates how close the program is to ITS OWN light
-speed; both numbers are printed.
+The work is float32 on CUDA cores (4x4 blocks, no tensor cores), so the
+compute peak is the plain float32 rate.  Peaks are keyed by
+``device_kind``; a device missing from ``PEAKS`` is an error.
 
 Usage:
     # FLOP counting only (any platform):
     python examples/roofline.py --model cartpole --horizon 100
 
-    # full roofline from a bench measurement:
+    # full roofline from a measurement on the GPU:
     python examples/roofline.py --model cartpole --horizon 100 \
-        --solves-per-sec 144359 --mean-iters 123
+        --solves-per-sec <measured> --mean-iters <measured>
 """
 
 from __future__ import annotations
@@ -40,6 +36,22 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# Published peaks by ``jax.Device.device_kind``: float32 without tensor
+# cores (TFLOP/s) and device-memory bandwidth (TB/s).  Source: NVIDIA H100
+# data sheet, SXM part, at its 700 W limit; a card set to a lower power
+# limit cannot hold these under load.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"fp32_tflops": 67.0, "hbm_tbs": 3.35},
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise SystemExit(f"roofline: no published peaks for device "
+                         f"{device_kind!r}; add it to PEAKS") from None
+
 
 def main():
     p = argparse.ArgumentParser()
@@ -49,16 +61,8 @@ def main():
                    help="lanes, for the batched FLOP count")
     p.add_argument("--solves-per-sec", type=float, default=None)
     p.add_argument("--mean-iters", type=float, default=None,
-                   help="mean Newton iterations per solve (bench debug "
-                   "output or docs/PERFORMANCE.md)")
-    p.add_argument("--peak-tflops-bf16", type=float, default=197.0,
-                   help="v5e MXU peak (bf16)")
-    p.add_argument("--matmul-passes", type=float, default=3.0,
-                   help="bf16 passes per f32 product at precision=highest")
-    p.add_argument("--peak-hbm-gbs", type=float, default=819.0)
-    p.add_argument("--peak-vpu-tflops", type=float, default=12.3,
-                   help="VPU f32 peak estimate: (8,128) lanes x 4 ALUs x "
-                   "2 flops x ~1.5 GHz")
+                   help="mean Newton iterations per solve (chip_smoke.py "
+                   "or bench.py output)")
     p.add_argument("--path", choices=["fused", "unfused"], default="fused",
                    help="which working-set model to normalize bytes with "
                    "(BATCH_CONFIG streams run the fused kernel)")
@@ -74,6 +78,9 @@ def main():
 
     import ipoc_tpu
     from ipoc_tpu.models import cartpole, pendulum, quadrotor, unicycle
+    from ipoc_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     from ipoc_tpu.solvers.ip_newton import FlatLane, flat_lane_init, flat_lane_iter
 
     model = {"cartpole": cartpole, "pendulum": pendulum,
@@ -109,7 +116,8 @@ def main():
     #   HBM between the derivative phase and the Riccati kernel.
     # * fused (the production BATCH_CONFIG path): the two-launch kernel
     #   re-derives the model IN-KERNEL (fused_iter_kernel.py) — only the
-    #   lane state (x, u) crosses HBM, ~2 reads + 2 writes per iteration.
+    #   lane state (x, u) and the gains cross device memory, ~2 reads +
+    #   2 writes of the lane state per iteration.
     stage_data = nu + nx * nx + nu * nu + nx * nu + nx * nx + nx * nu
     lane_state = (H + 1) * nx + H * nu
     bytes_unfused = 4.0 * (2 * 2 * lane_state + H * stage_data)
@@ -126,37 +134,32 @@ def main():
     }
 
     if args.solves_per_sec and args.mean_iters:
+        kind = jax.devices()[0].device_kind
+        peak = peaks_for(kind)
         iters_per_sec = args.solves_per_sec * args.mean_iters
         achieved_flops = iters_per_sec * flops_per_lane_iter
         path_bytes = bytes_fused if args.path == "fused" else bytes_unfused
-        achieved_gbs = iters_per_sec * path_bytes / 1e9
-        peak_f32_eff = args.peak_tflops_bf16 / args.matmul_passes
+        achieved_tbs = iters_per_sec * path_bytes / 1e12
         out.update({
+            "device_kind": kind,
             "path": args.path,
             "solves_per_sec": args.solves_per_sec,
             "mean_iters": args.mean_iters,
             "iters_per_sec": iters_per_sec,
             "achieved_tflops": achieved_flops / 1e12,
-            "pct_of_bf16_mxu_peak": 100 * achieved_flops
-            / (args.peak_tflops_bf16 * 1e12),
-            "pct_of_f32_effective_mxu_peak": 100 * achieved_flops
-            / (peak_f32_eff * 1e12),
-            "pct_of_vpu_f32_peak": 100 * achieved_flops
-            / (args.peak_vpu_tflops * 1e12),
-            "achieved_hbm_gbs_analytic": achieved_gbs,
-            "pct_of_hbm_peak": 100 * achieved_gbs / args.peak_hbm_gbs,
+            "pct_of_fp32_peak": 100 * achieved_flops
+            / (peak["fp32_tflops"] * 1e12),
+            "achieved_hbm_tbs_analytic": achieved_tbs,
+            "pct_of_hbm_peak": 100 * achieved_tbs / peak["hbm_tbs"],
         })
-        # Bound classification.  The per-stage matrices here are tiny
-        # (nx <= 13): the fused kernels execute on the VPU, so the VPU
-        # fraction — not the MXU one — is the compute axis.  Whichever of
-        # {VPU, HBM} holds the larger fraction binds; if both are <25%,
-        # the step is overhead-bound (kernel launches, glue ops, sublane
-        # padding of nx-wide rows into (8,128) vregs, while-loop sync).
-        c = out["pct_of_vpu_f32_peak"]
+        # Whichever of {compute, bandwidth} holds the larger fraction
+        # binds; if both are < 25%, the step is overhead-bound (kernel
+        # launches, glue ops, while-loop predicates).
+        c = out["pct_of_fp32_peak"]
         b = out["pct_of_hbm_peak"]
         out["bound"] = (
             "overhead" if max(c, b) < 25.0
-            else ("compute(vpu)" if c >= b else "bandwidth")
+            else ("compute" if c >= b else "bandwidth")
         )
     print(json.dumps(out, indent=2))
 

@@ -1,20 +1,20 @@
-"""ipoc_tpu — TPU-native interior-point parallel-in-time optimal control.
+"""ipoc_tpu — interior-point parallel-in-time optimal control in JAX.
 
-A ground-up TPU-first framework with the capabilities of the reference
-``noc`` library (casiacob/ip-parallel-optimal-control) plus its external
-``paroc`` dependency, re-designed for JAX/XLA/Pallas on TPU device meshes.
+A framework with the capabilities of the reference ``noc`` library
+(casiacob/ip-parallel-optimal-control) plus its external ``paroc``
+dependency, re-designed for JAX/XLA on NVIDIA GPUs.
 """
 
 import os as _os
 
 import jax as _jax
 
-# TPU matmuls default to bf16 MXU passes for f32 inputs; for an
-# interior-point solver chasing ||grad||_inf < 1e-4 through chains of
-# thousands of small matrix products, that default is catastrophic
-# (measured: relative error ~1e1 in the T=1000 costate scan vs 4e-4 at full
-# f32).  The matrices here are tiny, so full-precision passes cost nothing.
-# Opt out with IPOC_MATMUL_PRECISION=default.
+# On the GPU, float32 matrix products may run in TF32 (about three decimal
+# digits) unless asked for full precision.  An interior-point solver chasing
+# ||grad||_inf < 1e-4 through chains of thousands of small matrix products
+# (costate and Riccati recursions over T stages) cannot afford that, and the
+# matrices here are tiny, so full precision costs nothing.  Opt out with
+# IPOC_MATMUL_PRECISION=default.
 _prec = _os.environ.get("IPOC_MATMUL_PRECISION", "highest")
 if _prec != "default":
     _jax.config.update("jax_default_matmul_precision", _prec)

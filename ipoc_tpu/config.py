@@ -96,21 +96,17 @@ class SolverConfig:
 
     # Newton-step evaluator for the parallel entry point:
     #   "par" — parallel-in-time LQT scans (O(log T) span; reference
-    #           semantics, the latency winner for single solves).
+    #           semantics, for single solves).
     #   "seq" — sequential-in-time Riccati recursion (O(T) work per solve;
-    #           same stationary points).  For BATCHED solves this is the
-    #           TPU throughput winner: the scenario batch fills the VPU
-    #           lanes (fused kernel, ops/pallas/seq_newton_kernel.py) and
-    #           each solve does log2(T)-times less combine work than the
-    #           parallel scan.
+    #           same stationary points); for batched solves, where the
+    #           scenario batch fills the device.
     #   "fused" — "seq" semantics with the ENTIRE trial evaluation (model
-    #           derivatives re-derived in-kernel, costates, Riccati,
-    #           deviation rollout, both cost evaluations, feasibility) as
-    #           two Pallas launches reading only (x, u)
-    #           (ops/pallas/fused_iter_kernel.py) — the fastest batched
-    #           path; requires globalization="single" and
-    #           terminal_hessian="exact".  Off-TPU/f64 it falls back to an
-    #           identical unfused composition.
+    #           derivatives, costates, Riccati, deviation rollout, both
+    #           cost evaluations, feasibility) as one per-lane op: under
+    #           vmap on the GPU in float32 two Triton launches reading only
+    #           (x, u) (ops/pallas/fused_iter_kernel.py), elsewhere an
+    #           identical plain composition.  Requires
+    #           globalization="single" and terminal_hessian="exact".
     #   "ddp" — the IP-DDP trial (full derivative set, Vx-contracted
     #           backward pass, NONLINEAR closed-loop re-rollout; reference
     #           ddp:28-90) as the per-iteration evaluator, which plugs DDP
@@ -176,30 +172,22 @@ FAST_CONFIG = SolverConfig(
     max_newton_iters=200, max_inner_iters=60, reg_scale_floor=1e-6
 )
 
-# Batched-throughput config: single-trial globalization (no lockstep retry
-# loop), the sequential-in-time Newton step (batch-in-lanes fused kernel;
-# O(T) work per solve vs O(T log T) for the parallel scan), and the
-# predicted-reduction convergence floor (stop at f32 numerical stationarity
-# instead of grinding the gradient norm at the noise floor: measured
-# solution cost stays within ~2e-7 relative of the f64 optimum, see
-# docs/PERFORMANCE.md) on top of FAST_CONFIG.
-# reg_init=100: cold-started batches start heavily damped (early steps are
-# near-gradient steps that are almost always accepted) and LM shrinks the
-# damping within a few accepted iterations; measured to cut the lockstep
-# iteration tail by ~25% on both pendulum and cartpole cold starts with
-# unchanged solution cost.  Warm-started (MPC) solves should prefer the
-# reference reg_init=1.
-# newton_impl="fused": the whole trial evaluation as two Pallas launches
-# with model derivatives re-derived in-kernel (reads (x, u) instead of the
-# ~42-floats-per-stage Newton stage data; measured +16% stream throughput
-# over "seq" at B=2048, docs/PERFORMANCE.md).  Off-TPU it falls back to the
-# identical unfused composition.
-# stage_predictor + reg_stage_init: cold-start stage transitions extrapolate
-# the central path and restart the LM damping small (the warm-started stage
-# is near its optimum; resetting to reg_init=100 burns ~10 accepted
-# iterations shrinking it back).  Measured on the cartpole H=100 cold-start
-# stream: mean iterations 147.4 -> 122.9 with converged raw costs unchanged
-# (docs/PERFORMANCE.md).
+# Batched-throughput config on top of FAST_CONFIG:
+# * single-trial globalization (no lockstep retry loop under vmap);
+# * newton_impl="fused": the whole trial evaluation as one per-lane op
+#   (the Triton kernel on the GPU in float32);
+# * pred_floor: stop a stage at f32 numerical stationarity (negligible
+#   predicted reduction at a convex step) instead of grinding the gradient
+#   norm at the noise floor;
+# * reg_init=100: cold-started batches start heavily damped (early steps
+#   are near-gradient steps that are almost always accepted) and LM shrinks
+#   the damping within a few accepted iterations, which shortens the
+#   lockstep iteration tail.  Warm-started (MPC) solves should prefer the
+#   reference reg_init=1;
+# * stage_predictor + reg_stage_init: cold-start stage transitions
+#   extrapolate the central path and restart the LM damping small (the
+#   warm-started stage is near its optimum; resetting to reg_init=100
+#   burns accepted iterations shrinking it back).
 BATCH_CONFIG = FAST_CONFIG.replace(
     globalization="single", newton_impl="fused", pred_floor=1e-7,
     reg_init=100.0, stage_predictor=True, reg_stage_init=0.1,

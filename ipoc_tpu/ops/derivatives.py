@@ -6,7 +6,7 @@ seq_interior_point_newton.py:10-25 == differential_dynamic_programming.py:10-25)
 and duplicates ``compute_lqr_params`` and the feasibility check.  This module
 is the one shared implementation (SURVEY §2.9).
 
-TPU notes: Hessians use forward-over-reverse (``jacfwd(jacrev(.))``) which is
+Notes: Hessians use forward-over-reverse (``jacfwd(jacrev(.))``) which is
 the cheap order for the small state/control dims here; everything is vmapped
 over the horizon so XLA sees one batched program, not T small ones.
 """

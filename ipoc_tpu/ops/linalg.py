@@ -1,11 +1,11 @@
-"""Small dense linear-algebra helpers tuned for TPU.
+"""Small dense linear-algebra helpers for tiny blocks.
 
 The reference uses ``jnp.linalg.inv`` (seq_interior_point_newton.py:58-59)
-and ``jnp.linalg.eigh`` convexity checks (seq:52-53, ddp:47-48).  On TPU
-both are poor choices for tiny SPD systems: we use Cholesky factorization for
-solves and the *success of the Cholesky factorization itself* as the
-positive-definiteness signal (SURVEY §7 "Hard parts": eigh is expensive on
-TPU; Cholesky success is the equivalent signal).
+and ``jnp.linalg.eigh`` convexity checks (seq:52-53, ddp:47-48).  Both are
+poor choices for tiny SPD systems: we use Cholesky factorization for solves
+and the *success of the Cholesky factorization itself* as the
+positive-definiteness signal (SURVEY §7 "Hard parts": eigh is expensive;
+Cholesky success is the equivalent signal).
 """
 
 from __future__ import annotations
@@ -21,11 +21,9 @@ def sym(a):
 
 
 # Unrolled small-matrix routines: the state/control blocks here are 1x1 to
-# ~8x8, where (a) XLA's LAPACK-style custom calls (LuDecomposition,
-# Cholesky) carry large fixed overheads per tiny batch element, and (b) TPU
-# supports them in f32 only — f64 LU raises "Only F32 and C64 types are
-# implemented in LuDecomposition".  The unrolled paths below are pure
-# jnp arithmetic: any dtype, any backend, fully fusible.
+# ~8x8, where a library call (LU, Cholesky) carries a large fixed overhead
+# per tiny batch element.  The unrolled paths below are pure jnp
+# arithmetic: any dtype, any backend, fully fusible.
 SMALL_N = 8
 
 
@@ -72,8 +70,7 @@ def _gauss_solve_small_nopivot(A, B):
 
     For diagonally-sound systems (regularized Newton blocks, ``I + C J``
     with PSD factors) this avoids the expensive batched ``take_along_axis``
-    row swaps of the pivoted path — on TPU those gathers dominate the whole
-    solve.  Not safe for arbitrary matrices.
+    row swaps of the pivoted path, which can dominate the whole solve.  Not safe for arbitrary matrices.
     """
     n = A.shape[-1]
     for col in range(n):
@@ -183,8 +180,8 @@ def is_posdef(A):
 def solve(A, b, pivot: bool = True):
     """General (non-SPD) batched linear solve.
 
-    Unrolled elimination for small n (any dtype, any backend — TPU f64
-    included); LU otherwise.  ``b`` is a single vector iff ``b.ndim == 1``,
+    Unrolled elimination for small n (any dtype, any backend); LU
+    otherwise.  ``b`` is a single vector iff ``b.ndim == 1``,
     otherwise a broadcastable matrix (jnp.linalg.solve convention on
     JAX >= 0.5).  ``pivot=False`` selects the gather-free elimination for
     diagonally-sound systems (see :func:`_gauss_solve_small_nopivot`).

@@ -1,9 +1,10 @@
-"""Pallas TPU kernels and the dispatch gate.
+"""Hand-written GPU kernels and the rule that picks them.
 
-``use_pallas_scans`` decides whether the fused scan kernels replace the
-``lax.associative_scan`` paths: on by default on real TPU backends for f32
-elements with small state dimension; controllable globally via
-:func:`set_pallas_scans`.
+One kernel family lives here: the fused lane iteration
+(fused_iter_kernel.py), two Pallas launches through Triton that evaluate a
+whole Newton trial per scenario.  It is chosen by observable properties
+only — backend, dtype and state dimension — and everything else runs the
+plain XLA composition it is tested against.
 """
 
 from __future__ import annotations
@@ -11,50 +12,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-_MODE = "auto"  # "auto" | "on" | "off"
+# Largest state dimension the fused kernel unrolls: its value-function
+# carry holds nx * nx lane vectors in registers.
+MAX_NX = 8
 
 
-def set_pallas_scans(mode: str) -> None:
-    """Force the fused Pallas scan kernels on/off ("auto" restores default)."""
-    global _MODE
-    if mode not in ("auto", "on", "off"):
-        raise ValueError(f"mode must be auto/on/off, got {mode!r}")
-    _MODE = mode
-
-
-def use_pallas_scans(dtype, n: int) -> bool:
-    """Gate: fused kernels handle f32 elements with n <= 8 on TPU."""
-    if _MODE == "off":
-        return False
-    eligible = dtype == jnp.float32 and n <= 8
-    if _MODE == "on":
-        return eligible
-    return eligible and jax.default_backend() == "tpu"
-
-
-def use_seq_newton(dtype, n: int, horizon: int | None = None,
-                   nu: int | None = None) -> bool:
-    """Gate for the fused sequential Newton-trial kernels (batch in lanes).
-
-    Same eligibility as the scan kernels; selected by
-    ``SolverConfig.newton_impl == "seq"`` (the batched-throughput path).
-    There is no horizon cap: horizons whose stage data exceeds the resident
-    kernel's VMEM budget dispatch to the T-streamed variant instead
-    (seq_newton_kernel.py, ``_pick_kernel``).  ``horizon``/``nu`` are kept
-    for signature compatibility.
-    """
-    del horizon, nu
-    return use_pallas_scans(dtype, n)
-
-
-def use_fused_newton(dtype, n: int) -> bool:
-    """Gate for the single-launch fused Newton-trial kernel.
-
-    Same eligibility as the scan kernels plus an env kill-switch
-    (IPOC_FUSED_NEWTON=0) in case its larger compile time is unwanted.
-    """
-    import os
-
-    if os.environ.get("IPOC_FUSED_NEWTON", "1") == "0":
-        return False
-    return use_pallas_scans(dtype, n)
+def use_fused_lane_iter(dtype, nx: int) -> bool:
+    """The fused lane iteration runs on the GPU backend, in float32, for
+    nx <= MAX_NX.  CPU runs and float64 take the XLA composition."""
+    return (jax.default_backend() == "gpu" and dtype == jnp.float32
+            and nx <= MAX_NX)

@@ -1,40 +1,36 @@
-"""Fully-fused Newton iteration: model derivatives computed IN-kernel.
+"""Fused lane iteration: one Newton trial per scenario, T loop in-kernel.
 
 The per-iteration pipeline of the batched flat-mode solver
-(solvers/ip_newton.py flat_lane_iter) was, before this kernel:
+(solvers/ip_newton.py flat_lane_iter) is, in plain XLA:
 
-    XLA: total_cost -> first-order derivatives -> [costate kernel]
-    -> Hamiltonian Hessians -> [Newton-trial kernel] -> trial cost
+    total_cost -> first-order derivatives -> costate scan
+    -> Hamiltonian Hessians -> Riccati scan -> forward scan -> trial cost
     -> feasibility
 
-with the Newton stage data (ru, Q, R, M, fx, fu — ~42 floats per stage per
-scenario) materialized to HBM between the XLA prologue and the trial kernel.
-Here the whole iteration is TWO Pallas launches that read only the iterate
-``(x, u)`` (~5 floats per stage) and the per-lane scalars ``(bp, reg)``:
+(:func:`_fused_reference`).  Every scan over the horizon is a sequential
+loop of small launches.  Here the whole evaluation is TWO Pallas launches
+through Triton (``backend="triton"``) that read only the iterate ``(x, u)``
+and the per-lane scalars ``(bp, reg)``:
 
-* **backward launch** — one stage per grid step, newest-to-oldest.  At each
-  stage the model's first- and second-order stage data are computed on the
-  fly by JAX AD *inside* the kernel (``jax.linearize`` of the Hamiltonian
-  gradient + ``jax.jacrev`` of the dynamics, replayed on (S, 128) tiles by
-  the block interpreter below so every generated primitive is an
-  elementwise Mosaic op), then consumed immediately by the costate
-  recursion (the Hamiltonian-gradient primal IS lam_new and ru) and the
-  Riccati recursion — nothing but the gains ever reaches HBM.  The launch
-  also accumulates the current total cost and the convergence norm
-  ``max_t |ru|`` on the fly.
-* **forward launch** — closed-loop deviation rollout (fx, fu re-derived
-  in-kernel) fused with the trial evaluation: emits the trial iterate
-  ``(x + dx, u + du)``, its barrier total cost, and the trajectory's
-  maximum constraint value (feasible iff <= 0).
+* one scenario per GPU thread; each program owns ``BL`` lanes and every
+  matrix entry is one ``(BL,)`` vector, unrolled in Python over nx and nu;
+* **backward launch** — a reversed ``fori_loop`` over T.  At each stage the
+  model's first- and second-order stage data are emitted by the scalar DAG
+  (ops/pallas/scalarize.py) from JAX AD of the Hamiltonian, then consumed
+  at once by the costate and Riccati recursions, whose carries (value
+  function, costate, predicted reduction, minimum pivot, cost, gradient
+  norm) stay in registers.  Only the gains ``[k | K]`` reach device memory;
+* **forward launch** — the closed-loop deviation rollout fused with the
+  trial evaluation: the trial iterate, its barrier cost and its maximum
+  constraint value (feasible iff <= 0).
 
-Semantics are identical to the unfused path (reference semantics cites:
-compute_hamiltonian_lqr == compute_lqr_params(costates, compute_derivatives)
-== reference par_interior_point_newton.py:13-42; Riccati recursion ==
-seq_interior_point_newton.py:42-90; trial acceptance quantities ==
-par:156-165) up to f32 summation order.  Requires
-``terminal_hessian="exact"`` (the in-kernel terminal data is
-grad/hessian(final_cost), the documented deliberate fix of the reference's
-XT=Q[0] quirk, par:74).
+All arrays are lane-major, ``(T, rows, B)``, so each load and store of a
+row is coalesced.  Semantics equal the plain composition (reference cites:
+compute_hamiltonian_lqr == reference par_interior_point_newton.py:13-42;
+Riccati recursion == seq_interior_point_newton.py:42-90; trial acceptance
+quantities == par:156-165) up to float32 summation order.  Requires
+``terminal_hessian="exact"`` (the terminal data is grad/hessian of the
+final cost, the documented fix of the reference's XT=Q[0] quirk, par:74).
 """
 
 from __future__ import annotations
@@ -44,576 +40,30 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from ipoc_tpu.ops.pallas.seq_newton_kernel import (
-    LANES,
-    SUBLANES,
-    _add_mm_sym,
-    _ceil_to,
-    _dot,
-    _gain_rhs,
-    _mm,
-    _mv,
-    _pack_s,
-    _pivots_only,
-    _solve_track,
-    _stream_sublanes,
-    _transpose,
-    _unpack_s,
-)
+from ipoc_tpu.ops.pallas import use_fused_lane_iter
+from ipoc_tpu.ops.pallas.scalarize import scalar_lift
 from ipoc_tpu.problem import OCP
 
+# Lanes (scenarios) per program.  32 lanes = one warp: 4096 lanes give 128
+# programs, about one per SM of an H100.
+BLOCK_LANES = 32
+BWD_NAME = "ipoc_lane_iter_bwd"
+FWD_NAME = "ipoc_lane_iter_fwd"
+
 
 # ---------------------------------------------------------------------------
-# Block lifting: evaluate a per-element jaxpr with every value carrying a
-# trailing (S, LANES) batch.
-#
-# ``jax.vmap`` cannot be used inside the kernel: its batching rules move the
-# mapped axis to the FRONT for shape-changing primitives, producing
-# batch-leading intermediates (e.g. vector<128x8x4x4>) whose minor dims are
-# the tiny component axes — layouts Mosaic cannot tile (measured: "unsupported
-# shape cast").  Instead the per-element function (model + its AD, flattened
-# to primitives by make_jaxpr) is replayed by a ~10-rule interpreter where
-# each abstract value of shape ``s`` is a concrete array of shape
-# ``s + (S, LANES)``: elementwise primitives apply unchanged, reductions /
-# concatenations / squeezes already index leading axes, and only the
-# shape-parameterized primitives (reshape, transpose, broadcast, slice, pad)
-# need their parameters extended over the trailing tile.
+# Per-element stage functions (lifted to lane vectors by scalar_lift)
 # ---------------------------------------------------------------------------
-
-
-def _r_broadcast_in_dim(eqn, vals, blk):
-    (x,) = vals
-    shape = tuple(eqn.params["shape"]) + blk
-    if not hasattr(x, "ndim") or x.ndim == 0:
-        return jnp.broadcast_to(x, shape)
-    bdims = tuple(eqn.params["broadcast_dimensions"]) + (
-        len(shape) - 2, len(shape) - 1)
-    return jax.lax.broadcast_in_dim(x, shape, bdims)
-
-
-def _r_reshape(eqn, vals, blk):
-    (x,) = vals
-    if eqn.params.get("dimensions") is not None:
-        raise NotImplementedError("reshape with dimensions in block_eval")
-    return jax.lax.reshape(x, tuple(eqn.params["new_sizes"]) + blk)
-
-
-def _r_transpose(eqn, vals, blk):
-    (x,) = vals
-    perm = tuple(eqn.params["permutation"])
-    return jax.lax.transpose(x, perm + (len(perm), len(perm) + 1))
-
-
-def _r_slice(eqn, vals, blk):
-    (x,) = vals
-    start = tuple(eqn.params["start_indices"]) + (0, 0)
-    limit = tuple(eqn.params["limit_indices"]) + blk
-    strides = eqn.params["strides"]
-    strides = (tuple(strides) if strides is not None
-               else (1,) * (len(limit) - 2)) + (1, 1)
-    return jax.lax.slice(x, start, limit, strides)
-
-
-def _r_pad(eqn, vals, blk):
-    x, pv = vals
-    cfg = tuple(eqn.params["padding_config"])
-    if not hasattr(pv, "ndim") or jnp.ndim(pv) == 0:
-        return jax.lax.pad(x, pv, cfg + ((0, 0, 0), (0, 0, 0)))
-    # batched (per-lane) pad value — lax.pad needs a scalar, so build the
-    # padding blocks explicitly and concatenate along the leading dims
-    if any(i != 0 for _, _, i in cfg):
-        raise NotImplementedError(
-            "interior pad with batched pad value in block_eval")
-    if any(lo < 0 or hi < 0 for lo, hi, _ in cfg):
-        raise NotImplementedError(
-            "negative pad with batched pad value in block_eval")
-    out = x
-    for d, (lo, hi, _) in enumerate(cfg):
-        if lo == 0 and hi == 0:
-            continue
-        shp = list(out.shape)
-
-        def piece(n, shp=shp, d=d):
-            s = tuple(shp[:d] + [n] + shp[d + 1:])
-            return jnp.broadcast_to(
-                pv.reshape((1,) * (len(s) - 2) + tuple(blk)), s)
-
-        parts = ([piece(lo)] if lo else []) + [out] + (
-            [piece(hi)] if hi else [])
-        out = jnp.concatenate(parts, axis=d)
-    return out
-
-
-def _r_iota(eqn, vals, blk):
-    out = eqn.primitive.bind(**eqn.params)
-    return jnp.broadcast_to(
-        out.reshape(out.shape + (1, 1)), out.shape + blk)
-
-
-def _fit_to(v, out_shape, blk):
-    """Broadcast a blocked/unblocked/scalar value to a full output block."""
-    a = jnp.asarray(v)
-    if tuple(a.shape) == out_shape:
-        return a
-    if a.ndim == 0:
-        return jnp.broadcast_to(a, out_shape)
-    if tuple(a.shape[-2:]) == tuple(blk):  # blocked, lower-rank aval
-        core = a.shape[:-2]
-        new = (1,) * (len(out_shape) - 2 - len(core)) + tuple(core) + \
-            tuple(blk)
-    else:  # unblocked: aval dims lead, tile dims appended
-        new = (1,) * (len(out_shape) - 2 - a.ndim) + tuple(a.shape) + (1, 1)
-    return jnp.broadcast_to(a.reshape(new), out_shape)
-
-
-def _r_select_n(eqn, vals, blk):
-    # select_n is shape-strict: every operand must match the output block
-    # (the pred may be a lower-rank — even scalar — aval in the jaxpr)
-    out_shape = tuple(eqn.outvars[0].aval.shape) + blk
-    return jax.lax.select_n(*[_fit_to(v, out_shape, blk) for v in vals])
-
-
-def _r_add_any(eqn, vals, blk):
-    # add_any (transpose-rule accumulation) is shape-strict as well
-    out_shape = tuple(eqn.outvars[0].aval.shape) + blk
-    a, b = (_fit_to(v, out_shape, blk) for v in vals)
-    return a + b
-
-
-def _r_call(eqn, vals, blk):
-    inner = eqn.params["jaxpr"] if "jaxpr" in eqn.params else eqn.params[
-        "call_jaxpr"]
-    if hasattr(inner, "jaxpr"):  # ClosedJaxpr
-        for c in inner.consts:
-            if hasattr(c, "ndim") and c.ndim > 0:
-                raise NotImplementedError(
-                    "block_eval: nested call with non-scalar consts; "
-                    "inline the function or lift the constant out"
-                )
-        return _block_eval(inner.jaxpr, list(inner.consts), blk, *vals,
-                           block_outputs=False)
-    return _block_eval(inner, [], blk, *vals, block_outputs=False)
-
-
-_RULES = {
-    "broadcast_in_dim": _r_broadcast_in_dim,
-    "reshape": _r_reshape,
-    "transpose": _r_transpose,
-    "slice": _r_slice,
-    "pad": _r_pad,
-    "iota": _r_iota,
-    "select_n": _r_select_n,
-    "add_any": _r_add_any,
-}
-_CALLS = {"jit", "pjit", "custom_jvp_call", "custom_vjp_call",
-          "custom_jvp_call_jaxpr", "closed_call", "core_call"}
-
-
-def _run_eqns(eqns, env, blk):
-    """Evaluate equations with values carrying a trailing ``blk`` batch.
-
-    Values are *blocked* (shape ``aval.shape + blk``) or *unblocked*
-    (concrete constants — scalars broadcast for free; non-scalar constants
-    reaching a blocked operand are tiled at the meeting point, which is only
-    safe for CONCRETE values: abstract element-shaped intermediates would
-    stage element-shaped vector ops Mosaic cannot tile, so
-    :func:`_block_lift` constant-folds them away beforehand).
-    """
-
-    def read(v):
-        if isinstance(v, jax.extend.core.Literal):
-            return v.val
-        return env[v]
-
-    def blockedp(v, val):
-        return (hasattr(val, "shape")
-                and tuple(val.shape) == tuple(v.aval.shape) + blk)
-
-    def block(val):
-        a = jnp.asarray(val)
-        if a.ndim == 0:
-            return val  # scalars broadcast against blocked operands for free
-        return jnp.broadcast_to(
-            a.reshape(a.shape + (1, 1)), a.shape + blk)
-
-    for eqn in eqns:
-        raw = [read(v) for v in eqn.invars]
-        flags = [blockedp(v, x) for v, x in zip(eqn.invars, raw)]
-        any_b = any(flags)
-        name = eqn.primitive.name
-        if name in _CALLS:
-            outs = _r_call(eqn, raw, blk)
-        elif not any_b:
-            # constant subcomputation (possible in nested call bodies whose
-            # consts could not be folded at lift time)
-            outs = eqn.primitive.bind(*raw, **eqn.params)
-        else:
-            vals = [x if f else block(x) for f, x in zip(flags, raw)]
-            if name in _RULES:
-                outs = _RULES[name](eqn, vals, blk)
-            else:
-                # parameters are shape-agnostic here (elementwise ops,
-                # reductions / concatenations / squeezes on leading axes).
-                # Binary elementwise primitives allow implicit scalar-aval
-                # operands: left-pad lower-rank blocked values so numpy
-                # broadcasting sees the element dims aligned.
-                mx = max((jnp.ndim(v) for v in vals
-                          if hasattr(v, "shape")), default=0)
-                vals = [
-                    v.reshape((1,) * (mx - v.ndim) + tuple(v.shape))
-                    if hasattr(v, "shape") and 0 < v.ndim < mx else v
-                    for v in vals
-                ]
-                try:
-                    outs = eqn.primitive.bind(*vals, **eqn.params)
-                except Exception as e:
-                    raise NotImplementedError(
-                        f"block_eval: primitive {name!r} failed on blocked "
-                        f"shapes {[jnp.shape(v) for v in vals]}: {e}"
-                    ) from e
-        if not eqn.primitive.multiple_results:
-            outs = [outs]
-        else:
-            outs = list(outs)
-        for v, o in zip(eqn.outvars, outs):
-            ok_shapes = (tuple(v.aval.shape) + blk, tuple(v.aval.shape))
-            if hasattr(o, "shape") and tuple(o.shape) not in ok_shapes:
-                raise ValueError(
-                    f"block_eval: {name} produced {o.shape}, expected one "
-                    f"of {ok_shapes} — add a block rule for this primitive"
-                )
-            env[v] = o
-    return env
-
-
-def _block_eval(jaxpr, consts, blk, *args, block_outputs=True):
-    """Replay a (nested-call) jaxpr with trailing-``blk``-batched values."""
-    env = {}
-    for v, c in zip(jaxpr.constvars, consts):
-        env[v] = c
-    for v, a in zip(jaxpr.invars, args):
-        env[v] = a
-    env = _run_eqns(jaxpr.eqns, env, blk)
-
-    def read(v):
-        if isinstance(v, jax.extend.core.Literal):
-            return v.val
-        return env[v]
-
-    outs = [read(v) for v in jaxpr.outvars]
-    if block_outputs:
-        outs = [
-            o if (hasattr(o, "shape")
-                  and tuple(o.shape) == tuple(v.aval.shape) + blk)
-            else jnp.broadcast_to(
-                jnp.asarray(o).reshape(tuple(v.aval.shape) + (1, 1)),
-                tuple(v.aval.shape) + blk,
-            )
-            for v, o in zip(jaxpr.outvars, outs)
-        ]
-    return outs
-
-
-def _cse(eqns):
-    """Deduplicate structurally identical equations.
-
-    Two eqns merge when they apply the same primitive with the same params
-    to the same (substitution-resolved) inputs.  Safe for this pure-math
-    jaxpr set; params are compared by their string form (conservative:
-    identical prints + identical inputs => identical outputs).
-    Returns ``(new_eqns, outvar_substitution)``.
-    """
-    Literal = jax.extend.core.Literal
-    subst, seen, out = {}, {}, []
-
-    def lit_key(a):
-        v = a.val
-        return ("lit", str(getattr(v, "dtype", type(v).__name__)),
-                tuple(getattr(v, "shape", ())),
-                v.tobytes() if hasattr(v, "tobytes") else v)
-
-    for eqn in eqns:
-        ins = [a if isinstance(a, Literal) else subst.get(a, a)
-               for a in eqn.invars]
-        try:
-            key = (
-                eqn.primitive.name,
-                tuple(lit_key(a) if isinstance(a, Literal) else id(a)
-                      for a in ins),
-                tuple(sorted((k, str(v)) for k, v in eqn.params.items())),
-            )
-            hash(key)
-        except Exception:
-            key = None
-        if key is not None and key in seen:
-            for old, new in zip(eqn.outvars, seen[key]):
-                subst[old] = new
-            continue
-        if any(a is not b for a, b in zip(ins, eqn.invars)):
-            eqn = eqn.replace(invars=ins)
-        out.append(eqn)
-        if key is not None:
-            seen[key] = list(eqn.outvars)
-    return out, subst
-
-
-def _block_lift(fn, *example_args):
-    """Lift a per-element function to (S, LANES)-trailing blocks.
-
-    Traces ``fn`` (with ``disable_jit`` so library-internal jits inline),
-    CONSTANT-FOLDS every equation reachable from literals/constants alone —
-    under jaxpr tracing even constant subcomputations would otherwise stage
-    as abstract element-shaped ops inside the kernel, which Mosaic cannot
-    tile — and hoists the surviving non-scalar constants into explicit
-    kernel inputs (Pallas kernels may not close over non-scalar constants:
-    model weight vectors, AD basis rows, ...).
-
-    Returns ``(blocked_fn, consts)``.  ``blocked_fn`` takes each argument
-    as ``elem_shape + (S, LANES)`` and each const FLATTENED as
-    ``(size, S, LANES)`` (the kernel feeds them as broadcast blocks) and
-    reshapes them back inside.
-    """
-    Literal = jax.extend.core.Literal
-    # ensure_compile_time_eval: the lift may run inside an ambient jit /
-    # custom_vmap trace, where even const-only binds would stage as abstract
-    # ops — the folding below must evaluate eagerly.
-    with jax.ensure_compile_time_eval(), jax.disable_jit():
-        closed_jaxpr = jax.make_jaxpr(fn)(*example_args)
-        jaxpr = closed_jaxpr.jaxpr
-
-        # 1. constant folding, eagerly OUTSIDE any trace
-        conc = {v: jnp.asarray(c)
-                for v, c in zip(jaxpr.constvars, closed_jaxpr.consts)}
-        folded = set()
-        for i, eqn in enumerate(jaxpr.eqns):
-            vals = []
-            for a in eqn.invars:
-                if isinstance(a, Literal):
-                    vals.append(a.val)
-                elif a in conc:
-                    vals.append(conc[a])
-                else:
-                    vals = None
-                    break
-            if vals is None:
-                continue
-            outs = eqn.primitive.bind(*vals, **eqn.params)
-            if not eqn.primitive.multiple_results:
-                outs = [outs]
-            for v, o in zip(eqn.outvars, outs):
-                conc[v] = jnp.asarray(o)
-            folded.add(i)
-    eqns = [e for i, e in enumerate(jaxpr.eqns) if i not in folded]
-
-    # 2. common-subexpression elimination (to fixpoint: each merge can
-    # expose its consumers as duplicates).  The stage jaxpr concatenates
-    # several independent AD traces (linearize primal+jvps, jacrev of the
-    # dynamics, the raw cost evaluation) which recompute shared primal
-    # subexpressions (trig, denominators, ...).  XLA's CSE would fold them;
-    # the block interpreter replays eqns verbatim, so dedupe here.
-    outmap = {}
-    while True:
-        eqns, sub = _cse(eqns)
-        if not sub:
-            break
-        outmap = {k: sub.get(v, v) for k, v in outmap.items()}
-        outmap.update(sub)
-
-    # 3. surviving constants: folded values read by remaining eqns/outputs
-    outvars = [outmap.get(v, v) if not isinstance(v, Literal) else v
-               for v in jaxpr.outvars]
-    order, seen = [], set()
-    for e in eqns:
-        for a in e.invars:
-            if not isinstance(a, Literal) and a in conc and a not in seen:
-                seen.add(a)
-                order.append(a)
-    for a in outvars:
-        if not isinstance(a, Literal) and a in conc and a not in seen:
-            seen.add(a)
-            order.append(a)
-    hoist = [v for v in order if conc[v].ndim > 0]
-    # 0-d constants inline as Python scalars (jax.Array scalars would still
-    # count as captured constants; Python literals are weakly typed and are
-    # folded into the consuming ops)
-    scals = {v: conc[v].item() for v in order if conc[v].ndim == 0}
-    consts = [conc[v] for v in hoist]
-
-    def blocked(*all_args):
-        n = len(all_args) - len(hoist)
-        args, flat = all_args[:n], all_args[n:]
-        blk = tuple(args[0].shape[-2:])
-        env = {}
-        for v, a in zip(jaxpr.invars, args):
-            env[v] = a
-        for v, f in zip(hoist, flat):
-            env[v] = f.reshape(tuple(conc[v].shape) + blk)
-        env.update(scals)
-        env = _run_eqns(eqns, env, blk)
-
-        def read(v):
-            if isinstance(v, Literal):
-                return v.val
-            return env[v]
-
-        outs = []
-        for v in outvars:
-            o = read(v)
-            if not (hasattr(o, "shape")
-                    and tuple(o.shape) == tuple(v.aval.shape) + blk):
-                o = jnp.broadcast_to(
-                    jnp.asarray(o).reshape(tuple(v.aval.shape) + (1, 1)),
-                    tuple(v.aval.shape) + blk,
-                )
-            outs.append(o)
-        return tuple(outs) if len(outs) > 1 else outs[0]
-
-    return blocked, consts
-
-
-def _lift(fn, *example_args):
-    """Preferred lifting: scalar-DAG (ops/pallas/scalarize.py — one-hot AD
-    basis zeros fold away, scalar-granularity CSE, every emitted op a single
-    (S, LANES) vreg op), falling back to vector block lifting for jaxprs the
-    scalar interpreter does not cover.  ``IPOC_SCALARIZE=0`` forces the
-    block-lift path."""
-    import os
-
-    if os.environ.get("IPOC_SCALARIZE", "1") != "0":
-        from ipoc_tpu.ops.pallas.scalarize import scalar_lift
-
-        try:
-            return scalar_lift(fn, *example_args)
-        except NotImplementedError:
-            pass
-    return _block_lift(fn, *example_args)
-
-
-def _pack_consts(consts, S):
-    """Broadcast hoisted constants to (1, size, S, LANES) kernel inputs."""
-    out = []
-    for c in consts:
-        flat = jnp.reshape(c, (-1,))
-        out.append(
-            jnp.broadcast_to(
-                flat[:, None, None], (flat.shape[0], S, LANES)
-            )[None]
-        )
-    return out
-
-
-
-
-
-def _fwd_spec(rows, S, tb=1):
-    """(1, tb, rows, S, LANES) block walking the time axis forward
-    (``tb`` stages per grid step — time-blocking)."""
-    return pl.BlockSpec((1, tb, rows, S, LANES),
-                        lambda b, t: (b, t, 0, 0, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _rev_spec(rows, S, Tb, tb=1):
-    """(1, tb, rows, S, LANES) block walking the ``Tb`` time blocks
-    newest-to-oldest."""
-    return pl.BlockSpec((1, tb, rows, S, LANES),
-                        lambda b, t: (b, Tb - 1 - t, 0, 0, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def forced_time_block(T: int, context: str) -> int | None:
-    """Parse + validate the IPOC_TIME_BLOCK override; ``None`` if unset or
-    rejected (with a stderr warning naming the ``context`` kernel family).
-    One implementation shared by :func:`pick_time_block` and the mega
-    kernel's ``_mega_time_block`` so the accept rule cannot drift, and a
-    non-integer value (e.g. ``IPOC_TIME_BLOCK=auto``) warns and falls back
-    instead of raising at trace time."""
-    import os
-
-    forced = os.environ.get("IPOC_TIME_BLOCK", "")
-    if not forced:
-        return None
-    try:
-        tb = int(forced)
-    except ValueError:
-        tb = -1
-    if tb >= 1 and T % tb == 0:
-        return tb
-    import sys
-
-    print(
-        f"ipoc_tpu: IPOC_TIME_BLOCK={forced!r} rejected for {context} "
-        f"(must be an integer >= 1 dividing T={T}); using the default "
-        f"pick",
-        file=sys.stderr,
-    )
-    return None
-
-
-def pick_time_block(T: int) -> int:
-    """Largest time-block size in {8,5,4,2,1} dividing T (env override
-    IPOC_TIME_BLOCK).  Measured on v5e: per-grid-step fixed cost dominates
-    the vreg-packed stage math, so fatter grid steps win until the body's
-    unrolled ops thrash (docs/PERFORMANCE.md round-3 section)."""
-    tb = forced_time_block(T, "the streaming kernels")
-    if tb is not None:
-        return tb
-    for tb in (8, 5, 4, 2):
-        if T % tb == 0:
-            return tb
-    return 1
-
-
-def _bcast_spec(rows, S):
-    """Per-batch-block (1, rows, S, LANES) block, constant over time."""
-    return pl.BlockSpec((1, rows, S, LANES), lambda b, t: (b, 0, 0, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _scal_spec(S):
-    """Per-lane scalar block (1, 1, S, LANES), constant over time."""
-    return pl.BlockSpec((1, 1, S, LANES), lambda b, t: (b, 0, 0, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _const_spec(rows, S):
-    """Hoisted-constant block, shared by every grid step."""
-    return pl.BlockSpec((1, rows, S, LANES), lambda b, t: (0, 0, 0, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _iter_spec(rows, S, Tb, tb=1):
-    """Merged-kernel input walk over a (C, 2*Tb) grid: newest-to-oldest
-    block order through the backward phase (grid steps t < Tb),
-    oldest-to-newest through the forward phase.  The phase boundary
-    revisits block 0 (t = Tb-1 and t = Tb both map there), so no extra
-    fetch is paid.  ``tb`` stages per block (time-blocking)."""
-    return pl.BlockSpec(
-        (1, tb, rows, S, LANES),
-        lambda b, t: (b, jnp.where(t < Tb, Tb - 1 - t, t - Tb), 0, 0, 0),
-        memory_space=pltpu.VMEM)
-
-
-def _iter_out_spec(rows, S, Tb, tb=1):
-    """Merged-kernel per-stage output: parked on block 0 through the
-    backward phase (the window is only copied back when the block index
-    changes, and the forward phase's t == Tb step fully overwrites it
-    before that first change), then walking forward."""
-    return pl.BlockSpec(
-        (1, tb, rows, S, LANES),
-        lambda b, t: (b, jnp.maximum(t - Tb, 0), 0, 0, 0),
-        memory_space=pltpu.VMEM)
 
 
 def _stage_bwd_fn(ocp: OCP, nx: int, nu: int):
-    """Per-element backward stage data (blocked by :func:`_blocked`).
+    """Per-element backward stage data.
 
     Returns the Hamiltonian stage quantities (ops/derivatives.py
     compute_hamiltonian_lqr), the dynamics Jacobians, the updated costate,
-    and the stage cost — row-major flattened so the kernel's row-layout
-    algebra consumes them without reshapes.
+    and the stage cost — row-major flattened.
     """
 
     def stage(x, u, bp, lam_next):
@@ -624,16 +74,11 @@ def _stage_bwd_fn(ocp: OCP, nx: int, nu: int):
 
         # ONE linearization serves everything: the primal IS (lam_new, ru,
         # f, cost) — Hx = cx + fx^T lam', Hu = cu + fu^T lam' — and nx+nu
-        # cheap applications of the linear jvp give the Hessian columns
-        # (Q | M | R) AND the dynamics Jacobian columns (fx | fu) in the
-        # SAME shared trace (a separate jacrev re-derived fx/fu with
-        # subexpressions scalar-CSE could not merge — measured -8% stage
-        # ops on cartpole, r4).  The symmetric Hessian blocks keep only
-        # the upper triangle per column and MIRROR the rest, so the
-        # lower-triangle scalar nodes are dead-code-eliminated by the
-        # scalarizer's reachability pass (a further -5%; AD columns agree
-        # to ~1e-13, and the downstream _add_mm_sym algebra already
-        # enforces exact symmetry of the value carry).
+        # applications of the linear jvp give the Hessian columns
+        # (Q | M | R) AND the dynamics Jacobian columns (fx | fu) in one
+        # shared trace.  The symmetric Hessian blocks keep only the upper
+        # triangle per column and mirror the rest, so the lower-triangle
+        # scalar nodes are dead-code-eliminated by the scalarizer.
         def gf(xx, uu):
             Hx, Hu = jax.grad(ham, (0, 1))(xx, uu)
             return Hx, Hu, ocp.dynamics(xx, uu), ocp.stage_cost(xx, uu, bp)
@@ -654,16 +99,9 @@ def _stage_bwd_fn(ocp: OCP, nx: int, nu: int):
         M = jnp.stack([c[0] for c in ucols], axis=1)
         fx = jnp.stack([c[2] for c in xcols], axis=1)
         fu = jnp.stack([c[2] for c in ucols], axis=1)
-        return (
-            Hu,
-            Q.reshape(nx * nx),
-            R.reshape(nu * nu),
-            M.reshape(nx * nu),
-            fx.reshape(nx * nx),
-            fu.reshape(nx * nu),
-            Hx,
-            cst,
-        )
+        return (Hu, Q.reshape(nx * nx), R.reshape(nu * nu),
+                M.reshape(nx * nu), fx.reshape(nx * nx), fu.reshape(nx * nu),
+                Hx, cst)
 
     return stage
 
@@ -674,20 +112,13 @@ def _term_fn(ocp: OCP, nx: int):
     def term(xT):
         lamT = jax.grad(ocp.final_cost)(xT)
         VT = jax.jacfwd(jax.grad(ocp.final_cost))(xT)
-        cT = ocp.final_cost(xT)
-        return lamT, VT.reshape(nx * nx), cT
+        return lamT, VT.reshape(nx * nx), ocp.final_cost(xT)
 
     return term
 
 
-def _stage_fwd_fn(ocp: OCP, nx: int, nu: int, with_cu: bool = False):
-    """Per-element forward step: gains -> trial point -> cost/constraints.
-
-    ``with_cu`` additionally emits ``sum(cu^2)`` at the TRIAL point — the
-    stage contribution to ``||cu||_F^2`` of the next iterate if this trial
-    is accepted, so the Levenberg scale (reference par:116-118) needs no
-    separate XLA gradient pass per iteration (packed-stream path).
-    """
+def _stage_fwd_fn(ocp: OCP, nx: int, nu: int):
+    """Per-element forward step: gains -> trial point -> cost/constraints."""
 
     def stage(x, u, bp, dx, Kk):
         k = Kk[:nu]
@@ -695,16 +126,11 @@ def _stage_fwd_fn(ocp: OCP, nx: int, nu: int, with_cu: bool = False):
         du = k + jnp.sum(K * dx[None, :], axis=1)
         tu = u + du
         tx = x + dx
-        # The deviation propagation only needs the Jacobian-vector product
-        # fx dx + fu du — ONE forward-mode pass through the dynamics
-        # instead of materializing both Jacobians and contracting
-        # (measured -19% stage ops on cartpole, r4).
+        # The deviation propagation only needs fx dx + fu du: ONE
+        # forward-mode pass through the dynamics, no Jacobians.
         _, dxn = jax.jvp(ocp.dynamics, (x, u), (dx, du))
         cst = ocp.stage_cost(tx, tu, bp)
         cmax = jnp.max(ocp.constraints(tx, tu))
-        if with_cu:
-            cu = jax.grad(ocp.stage_cost, 1)(tx, tu, bp)
-            return tu, tx, dxn, cst, cmax, jnp.sum(cu * cu)
         return tu, tx, dxn, cst, cmax
 
     return stage
@@ -718,35 +144,78 @@ def _term_fwd_fn(ocp: OCP):
     return term
 
 
-def _stage_ddp_fwd_fn(ocp: OCP, nx: int, nu: int, with_cu: bool = False):
-    """Per-element DDP forward step: NONLINEAR closed-loop re-rollout
-    through the true dynamics (reference ddp:73-90; utils/integrators.py
-    closed_loop_rollout).  The carry is the trial state itself (not a
-    deviation): ``du = k + K (tx - x)``, ``tx+ = f(tx, u + du)``.
-    ``with_cu`` emits sum(cu^2) at the trial point (DDP scales the
-    Levenberg parameter by ||cu|| unconditionally, reference ddp:34-35)."""
-
-    def stage(x, u, bp, tx, Kk):
-        k = Kk[:nu]
-        K = Kk[nu:].reshape(nu, nx)
-        du = k + jnp.sum(K * (tx - x)[None, :], axis=1)
-        tu = u + du
-        txn = ocp.dynamics(tx, tu)
-        cst = ocp.stage_cost(tx, tu, bp)
-        cmax = jnp.max(ocp.constraints(tx, tu))
-        if with_cu:
-            cu = jax.grad(ocp.stage_cost, 1)(tx, tu, bp)
-            return tu, tx, txn, cst, cmax, jnp.sum(cu * cu)
-        return tu, tx, txn, cst, cmax
-
-    return stage
+# ---------------------------------------------------------------------------
+# Small-matrix algebra on lists of lane vectors: entry (i, j) of an (n x m)
+# matrix is element i * m + j.
+# ---------------------------------------------------------------------------
 
 
-def _term_ddp_fwd_fn(ocp: OCP):
-    def term(xT, txT):
-        return txT, ocp.final_cost(txT)
+def _mm(A, B, n, k, m):
+    """(n x k) @ (k x m)."""
+    return [_sum(A[i * k + l] * B[l * m + j] for l in range(k))
+            for i in range(n) for j in range(m)]
 
-    return term
+
+def _add_mm_sym(C, A, B, n, k):
+    """``C + A @ B`` for a symmetric (n x n) result: the upper triangle is
+    computed and mirrored, which keeps the value function exactly
+    symmetric (the plain path's ``linalg.sym``)."""
+    out = [None] * (n * n)
+    for i in range(n):
+        for j in range(i, n):
+            acc = C[i * n + j] + _sum(A[i * k + l] * B[l * n + j]
+                                      for l in range(k))
+            out[i * n + j] = out[j * n + i] = acc
+    return out
+
+
+def _mv(A, x, n, m):
+    """(n x m) @ (m,)."""
+    return [_sum(A[i * m + j] * x[j] for j in range(m)) for i in range(n)]
+
+
+def _transpose(A, n, m):
+    return [A[i * m + j] for j in range(m) for i in range(n)]
+
+
+def _sum(terms):
+    terms = iter(terms)
+    acc = next(terms)
+    for t in terms:
+        acc = acc + t
+    return acc
+
+
+def _solve_track(A, Bm, n, m):
+    """Unpivoted elimination ``A X = B`` for an (n x n) A and (n x m) B;
+    also returns the minimum leading pivot (A is PD iff it is > 0)."""
+    a, b = list(A), list(Bm)
+    minpiv = None
+    for k in range(n):
+        piv = a[k * n + k]
+        minpiv = piv if minpiv is None else jnp.minimum(minpiv, piv)
+        inv_p = 1.0 / piv
+        for j in range(k + 1, n):
+            a[k * n + j] = a[k * n + j] * inv_p
+        for j in range(m):
+            b[k * m + j] = b[k * m + j] * inv_p
+        for i in range(k + 1, n):
+            f = a[i * n + k]
+            for j in range(k + 1, n):
+                a[i * n + j] = a[i * n + j] - f * a[k * n + j]
+            for j in range(m):
+                b[i * m + j] = b[i * m + j] - f * b[k * m + j]
+    for i in range(n - 2, -1, -1):
+        for l in range(i + 1, n):
+            f = a[i * n + l]
+            for j in range(m):
+                b[i * m + j] = b[i * m + j] - f * b[l * m + j]
+    return b, minpiv
+
+
+def _min_pivot(A, n):
+    """Minimum leading pivot of an unpivoted elimination (PD test)."""
+    return _solve_track(A, [], n, 0)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -754,644 +223,179 @@ def _term_ddp_fwd_fn(ocp: OCP):
 # ---------------------------------------------------------------------------
 
 
-def _fused_bwd_kernel(*refs, nx, nu, T, stage, term, n_cs, n_ct, tb=1):
-    """Costates + stage data + Riccati in one reversed-time sweep.
+def _rows(ref, t, n):
+    return [ref[t, i, :] for i in range(n)]
 
-    ``tb`` stages are processed per grid step (time-blocking): the fixed
-    per-grid-step cost (index maps, window bookkeeping, DMA waits) is the
-    dominant per-iteration overhead once the math is vreg-packed, so fewer,
-    fatter steps win (same lever as the S=16/32 sublane packings)."""
-    x_ref, u_ref, xT_ref, bp_ref, reg_ref = refs[:5]
-    cs_refs = refs[5:5 + n_cs]
-    ct_refs = refs[5 + n_cs:5 + n_cs + n_ct]
-    (Kk_o, cost_o, dv_o, piv_o, hu_o) = refs[5 + n_cs + n_ct:
-                                             10 + n_cs + n_ct]
-    (Vxx_s, Vx_s, lam_s, dv_s, piv_s, cost_s, hu_s) = refs[10 + n_cs + n_ct:]
-    cs = [r[0] for r in cs_refs]
-    ct = [r[0] for r in ct_refs]
-    t = pl.program_id(1)
-    Tb = T // tb
 
-    @pl.when(t == 0)
-    def _():
-        lamT, VT, cT = term(xT_ref[0], *ct)
-        Vxx_s[:] = VT
-        Vx_s[:] = jnp.zeros_like(Vx_s)
-        lam_s[:] = lamT
-        dv_s[:] = jnp.zeros_like(dv_s)
-        piv_s[:] = jnp.full_like(piv_s, jnp.inf)
-        cost_s[:] = cT[None]
-        hu_s[:] = jnp.zeros_like(hu_s)
+def _bwd_kernel(x_ref, u_ref, bp_ref, reg_ref, kk_ref, out_ref, *, nx, nu,
+                T, stage, term):
+    """Costates + stage data + Riccati in one reversed-time loop.
 
-    bp = bp_ref[0, 0]
-    reg = reg_ref[0, 0]
+    Recursion (reference seq_interior_point_newton.py:42-90):
+      Qxx = Q + fx'V fx;  Quu = R + reg I + fu'V fu;  Qxu = M + fx'V fu
+      Qu  = ru + fu'v;    Qx = fx'v
+      [k | K] = -Quu^{-1} [Qu | Qxu'];  v <- Qx + Qxu k;  V <- Qxx + Qxu K
+      dV += k'Qu + 1/2 k'Quu k
+    ``out_ref`` rows: cost, dV, minimum pivot, max |ru|.
+    """
+    bp = bp_ref[...]
+    reg = reg_ref[...]
+    lamT, VT, cT = term(_rows(x_ref, T, nx))
+    zero = jnp.zeros_like(bp)
 
-    for j in reversed(range(tb)):
-        x = x_ref[0, j]
-        u = u_ref[0, j]
-
-        ru, Q, R, M, fx, fu, lam_new, cst = stage(x, u, bp, lam_s[:], *cs)
+    def body(s, carry):
+        Vxx, Vx, lam, dv, piv, cost, hu = carry
+        t = T - 1 - s
+        ru, Q, R, M, fx, fu, lam_new, cst = stage(
+            _rows(x_ref, t, nx), _rows(u_ref, t, nu), [bp], lam)
         # Levenberg: R += reg * I (reg pre-scaled by ||cu|| outside;
         # reference par:116-118).
-        R = jnp.stack(
-            [R[r] + reg if r % (nu + 1) == 0 else R[r]
-             for r in range(nu * nu)],
-            axis=0,
-        )
-
-        Vxx = Vxx_s[:]
-        Vx = Vx_s[:]
+        R = [R[r] + reg if r % (nu + 1) == 0 else R[r]
+             for r in range(nu * nu)]
         fxT = _transpose(fx, nx, nx)
         fuT = _transpose(fu, nx, nu)
         Vfx = _mm(Vxx, fx, nx, nx, nx)
         Vfu = _mm(Vxx, fu, nx, nx, nu)
         Qxx = _add_mm_sym(Q, fxT, Vfx, nx, nx)
         Quu = _add_mm_sym(R, fuT, Vfu, nu, nx)
-        Qxu = M + _mm(fxT, Vfu, nx, nx, nu)
-        Qu = ru + _mv(fuT, Vx, nu, nx)
+        Qxu = [a + b for a, b in zip(M, _mm(fxT, Vfu, nx, nx, nu))]
+        Qu = [a + b for a, b in zip(ru, _mv(fuT, Vx, nu, nx))]
         Qx = _mv(fxT, Vx, nx, nx)
+        QxuT = _transpose(Qxu, nx, nu)
+        rhs = [e for i in range(nu)
+               for e in [Qu[i]] + QxuT[i * nx:(i + 1) * nx]]
+        sol, p = _solve_track(Quu, rhs, nu, 1 + nx)
+        k = [-sol[i * (1 + nx)] for i in range(nu)]
+        K = [-sol[i * (1 + nx) + 1 + j] for i in range(nu) for j in range(nx)]
+        p = jnp.minimum(p, _min_pivot(R, nu))
+        for r, g in enumerate(k + K):
+            kk_ref[t, r, :] = g
+        Vx = [a + b for a, b in zip(Qx, _mv(Qxu, k, nx, nu))]
+        Vxx = _add_mm_sym(Qxx, Qxu, K, nx, nu)
+        dv = dv + _sum(k[i] * Qu[i] for i in range(nu)) + 0.5 * _sum(
+            k[i] * q for i, q in enumerate(_mv(Quu, k, nu, nu)))
+        piv = jnp.minimum(piv, p)
+        cost = cost + cst[0]
+        hu = functools.reduce(jnp.maximum, [jnp.abs(r) for r in ru], hu)
+        return Vxx, Vx, lam_new, dv, piv, cost, hu
 
-        rhs = _gain_rhs(Qu, _transpose(Qxu, nx, nu), nx, nu)
-        sol, piv = _solve_track(Quu, rhs, nu, 1 + nx)
-        k = -jnp.stack([sol[i_ * (1 + nx)] for i_ in range(nu)], axis=0)
-        K = -jnp.stack(
-            [sol[i_ * (1 + nx) + 1 + j2]
-             for i_ in range(nu) for j2 in range(nx)],
-            axis=0,
-        )
-        piv = jnp.minimum(piv, _pivots_only(R, nu))
-
-        Kk_o[0, j] = jnp.concatenate([k, K], axis=0)
-        Vx_s[:] = Qx + _mv(Qxu, k, nx, nu)
-        Vxx_s[:] = _add_mm_sym(Qxx, Qxu, K, nx, nu)
-        dv_s[:] = dv_s[:] + (
-            _dot(k, Qu, nu) + 0.5 * _dot(k, _mv(Quu, k, nu, nu), nu)
-        )[None]
-        piv_s[:] = jnp.minimum(piv_s[:], piv[None])
-        cost_s[:] = cost_s[:] + cst[None]
-        hu_s[:] = jnp.maximum(hu_s[:], jnp.max(jnp.abs(ru), axis=0)[None])
-        lam_s[:] = lam_new
-
-    @pl.when(t == Tb - 1)
-    def _():
-        cost_o[0, 0] = cost_s[0]
-        dv_o[0, 0] = dv_s[0]
-        piv_o[0, 0] = piv_s[0]
-        hu_o[0, 0] = hu_s[0]
+    carry = (VT, [zero] * nx, lamT, zero, jnp.full_like(bp, jnp.inf),
+             cT[0], zero)
+    _, _, _, dv, piv, cost, hu = jax.lax.fori_loop(0, T, body, carry)
+    for r, v in enumerate((cost, dv, piv, hu)):
+        out_ref[r, :] = v
 
 
-def _fused_fwd_kernel(*refs, nx, nu, T, stage, term, n_cs, n_ct,
-                      with_cu=False, tb=1):
-    """Deviation rollout fused with trial cost/feasibility evaluation.
+def _fwd_kernel(x_ref, u_ref, bp_ref, kk_ref, tx_ref, tu_ref, out_ref, *, nx,
+                nu, T, stage, term):
+    """Deviation rollout fused with the trial cost and feasibility.
+    ``out_ref`` rows: trial cost, maximum constraint value."""
+    bp = bp_ref[...]
+    ng = nu * (1 + nx)
 
-    ``with_cu`` adds a ``sum(cu^2)``-at-the-trial-point accumulator (extra
-    output + scratch; see :func:`_stage_fwd_fn`).  ``tb`` stages per grid
-    step (see :func:`_fused_bwd_kernel`)."""
-    x_ref, u_ref, xT_ref, bp_ref, Kk_ref = refs[:5]
-    cs_refs = refs[5:5 + n_cs]
-    ct_refs = refs[5 + n_cs:5 + n_cs + n_ct]
-    n_out = 6 if with_cu else 5
-    outs = refs[5 + n_cs + n_ct:5 + n_cs + n_ct + n_out]
-    scratch = refs[5 + n_cs + n_ct + n_out:]
-    if with_cu:
-        (tu_o, tx_o, txT_o, nc_o, mc_o, cun_o) = outs
-        (dx_s, cost_s, mc_s, cun_s) = scratch
-    else:
-        (tu_o, tx_o, txT_o, nc_o, mc_o) = outs
-        (dx_s, cost_s, mc_s) = scratch
-    cs = [r[0] for r in cs_refs]
-    ct = [r[0] for r in ct_refs]
-    t = pl.program_id(1)
-    Tb = T // tb
+    def body(t, carry):
+        dx, cost, mc = carry
+        tu, tx, dxn, cst, cmax = stage(
+            _rows(x_ref, t, nx), _rows(u_ref, t, nu), [bp], dx,
+            _rows(kk_ref, t, ng))
+        for i, v in enumerate(tu):
+            tu_ref[t, i, :] = v
+        for i, v in enumerate(tx):
+            tx_ref[t, i, :] = v
+        return dxn, cost + cst[0], jnp.maximum(mc, cmax[0])
 
-    @pl.when(t == 0)
-    def _():
-        dx_s[:] = jnp.zeros_like(dx_s)
-        cost_s[:] = jnp.zeros_like(cost_s)
-        mc_s[:] = jnp.full_like(mc_s, -jnp.inf)
-        if with_cu:
-            cun_s[:] = jnp.zeros_like(cun_s)
-
-    bp = bp_ref[0, 0]
-    for j in range(tb):
-        x = x_ref[0, j]
-        u = u_ref[0, j]
-        Kk = Kk_ref[0, j]
-
-        out = stage(x, u, bp, dx_s[:], Kk, *cs)
-        if with_cu:
-            tu, tx, dxn, cst, cmax, cusq = out
-            cun_s[:] = cun_s[:] + cusq[None]
-        else:
-            tu, tx, dxn, cst, cmax = out
-        tu_o[0, j] = tu
-        tx_o[0, j] = tx
-        cost_s[:] = cost_s[:] + cst[None]
-        mc_s[:] = jnp.maximum(mc_s[:], cmax[None])
-        dx_s[:] = dxn
-
-    @pl.when(t == Tb - 1)
-    def _():
-        txT, cT = term(xT_ref[0], dx_s[:], *ct)
-        txT_o[0] = txT
-        nc_o[0, 0] = cost_s[0] + cT
-        mc_o[0, 0] = mc_s[0]
-        if with_cu:
-            cun_o[0, 0] = cun_s[0]
-
-
-def _fused_iter_merged_kernel(*refs, nx, nu, T, stage_b, term_b, stage_f,
-                              term_f, n_cs_b, n_ct_b, n_cs_f, n_ct_f,
-                              ddp=False, with_cu=False, tb=1):
-    """Backward Riccati sweep + forward trial in ONE launch (grid (C, 2T)).
-
-    Grid steps ``t < T`` replay :func:`_fused_bwd_kernel`'s body with the
-    per-stage gains written to a VMEM scratch ring instead of an HBM
-    output; steps ``t >= T`` replay :func:`_fused_fwd_kernel`'s body
-    reading the gains back from scratch.  Saves one kernel launch and the
-    ``(T, ng)`` gains' HBM round trip per Newton iteration — the largest
-    per-iteration intermediate of the two-launch path
-    (docs/PERFORMANCE.md roofline: the step is launch/glue-overhead-bound).
-
-    ``ddp=True`` switches both phases to IP-DDP semantics (reference
-    differential_dynamic_programming.py:28-90, solvers/ip_ddp.py
-    ddp_bwd_pass + closed_loop_rollout): the Hamiltonian stage data is contracted with the
-    VALUE GRADIENT ``Vx`` instead of the costates (so ``Qu = Hu``,
-    ``Qx = Hx`` directly, no separate costate recursion), the terminal
-    value carries ``Vx_T = grad(final_cost)``, the predicted reduction is
-    ``sum 1/2 k'Qu``, and the forward phase is the NONLINEAR closed-loop
-    re-rollout through the true dynamics (``stage_f`` must then be
-    :func:`_stage_ddp_fwd_fn`).
-    """
-    x_ref, u_ref, xT_ref, bp_ref, reg_ref = refs[:5]
-    i = 5
-    cs_b = [r[0] for r in refs[i:i + n_cs_b]]
-    i += n_cs_b
-    ct_b = [r[0] for r in refs[i:i + n_ct_b]]
-    i += n_ct_b
-    cs_f = [r[0] for r in refs[i:i + n_cs_f]]
-    i += n_cs_f
-    ct_f = [r[0] for r in refs[i:i + n_ct_f]]
-    i += n_ct_f
-    n_out = 10 if with_cu else 9
-    outs = refs[i:i + n_out]
-    scratch = refs[i + n_out:]
-    if with_cu:
-        (tu_o, tx_o, txT_o, cost_o, dv_o, piv_o, hu_o, nc_o, mc_o,
-         cun_o) = outs
-        (Kk_s, Vxx_s, Vx_s, lam_s, dv_s, piv_s, cost_s, hu_s,
-         dx_s, nc_s, mc_s, cun_s) = scratch
-    else:
-        (tu_o, tx_o, txT_o, cost_o, dv_o, piv_o, hu_o, nc_o, mc_o) = outs
-        (Kk_s, Vxx_s, Vx_s, lam_s, dv_s, piv_s, cost_s, hu_s,
-         dx_s, nc_s, mc_s) = scratch
-    t = pl.program_id(1)
-    Tb = T // tb
-
-    bp = bp_ref[0, 0]
-
-    @pl.when(t < Tb)
-    def _bwd():
-        @pl.when(t == 0)
-        def _():
-            lamT, VT, cT = term_b(xT_ref[0], *ct_b)
-            Vxx_s[:] = VT
-            # Newton splits the value gradient between the costates and
-            # the deviation recursion (Vx_N = 0, reference seq:66-67); DDP
-            # carries the full Vx (ddp:58-59).
-            Vx_s[:] = lamT if ddp else jnp.zeros_like(Vx_s)
-            lam_s[:] = lamT
-            dv_s[:] = jnp.zeros_like(dv_s)
-            piv_s[:] = jnp.full_like(piv_s, jnp.inf)
-            cost_s[:] = cT[None]
-            hu_s[:] = jnp.zeros_like(hu_s)
-
-        reg = reg_ref[0, 0]
-        for jt in reversed(range(tb)):
-            x = x_ref[0, jt]
-            u = u_ref[0, jt]
-            contraction = Vx_s[:] if ddp else lam_s[:]
-            ru, Q, R, M, fx, fu, lam_new, cst = stage_b(
-                x, u, bp, contraction, *cs_b)
-            R = jnp.stack(
-                [R[r] + reg if r % (nu + 1) == 0 else R[r]
-                 for r in range(nu * nu)],
-                axis=0,
-            )
-
-            Vxx = Vxx_s[:]
-            Vx = Vx_s[:]
-            fxT = _transpose(fx, nx, nx)
-            fuT = _transpose(fu, nx, nu)
-            Vfx = _mm(Vxx, fx, nx, nx, nx)
-            Vfu = _mm(Vxx, fu, nx, nx, nu)
-            Qxx = _add_mm_sym(Q, fxT, Vfx, nx, nx)
-            Quu = _add_mm_sym(R, fuT, Vfu, nu, nx)
-            Qxu = M + _mm(fxT, Vfu, nx, nx, nu)
-            if ddp:
-                # The Hamiltonian gradient (contracted with Vx) IS (Qx, Qu)
-                # (reference ddp:44-45).
-                Qu = ru
-                Qx = lam_new
-            else:
-                Qu = ru + _mv(fuT, Vx, nu, nx)
-                Qx = _mv(fxT, Vx, nx, nx)
-
-            rhs = _gain_rhs(Qu, _transpose(Qxu, nx, nu), nx, nu)
-            sol, piv = _solve_track(Quu, rhs, nu, 1 + nx)
-            kg = -jnp.stack([sol[i_ * (1 + nx)] for i_ in range(nu)],
-                            axis=0)
-            K = -jnp.stack(
-                [sol[i_ * (1 + nx) + 1 + j]
-                 for i_ in range(nu) for j in range(nx)],
-                axis=0,
-            )
-            if not ddp:
-                piv = jnp.minimum(piv, _pivots_only(R, nu))
-
-            Kk_s[pl.ds((Tb - 1 - t) * tb + jt, 1)] = jnp.concatenate(
-                [kg, K], axis=0)[None]
-            Vx_s[:] = Qx + _mv(Qxu, kg, nx, nu)
-            Vxx_s[:] = _add_mm_sym(Qxx, Qxu, K, nx, nu)
-            if ddp:
-                # dV = -1/2 Qu' Quu^{-1} Qu = 1/2 k'Qu (ddp:53,58).
-                dv_s[:] = dv_s[:] + (0.5 * _dot(kg, Qu, nu))[None]
-            else:
-                dv_s[:] = dv_s[:] + (
-                    _dot(kg, Qu, nu)
-                    + 0.5 * _dot(kg, _mv(Quu, kg, nu, nu), nu)
-                )[None]
-            piv_s[:] = jnp.minimum(piv_s[:], piv[None])
-            cost_s[:] = cost_s[:] + cst[None]
-            hu_s[:] = jnp.maximum(hu_s[:],
-                                  jnp.max(jnp.abs(ru), axis=0)[None])
-            if not ddp:
-                lam_s[:] = lam_new
-
-        @pl.when(t == Tb - 1)
-        def _():
-            cost_o[0, 0] = cost_s[0]
-            dv_o[0, 0] = dv_s[0]
-            piv_o[0, 0] = piv_s[0]
-            hu_o[0, 0] = hu_s[0]
-
-    @pl.when(t >= Tb)
-    def _fwd():
-        @pl.when(t == Tb)
-        def _():
-            # Newton carries the deviation (dx_0 = 0, reference seq:78-90);
-            # DDP carries the trial state itself, starting at x_0 (the
-            # block delivered at this first forward step IS stage 0).
-            dx_s[:] = x_ref[0, 0] if ddp else jnp.zeros_like(dx_s)
-            nc_s[:] = jnp.zeros_like(nc_s)
-            mc_s[:] = jnp.full_like(mc_s, -jnp.inf)
-            if with_cu:
-                cun_s[:] = jnp.zeros_like(cun_s)
-
-        for jt in range(tb):
-            x = x_ref[0, jt]
-            u = u_ref[0, jt]
-            Kk = Kk_s[pl.ds((t - Tb) * tb + jt, 1)][0]
-            out = stage_f(x, u, bp, dx_s[:], Kk, *cs_f)
-            if with_cu:
-                tu, tx, dxn, cst, cmax, cusq = out
-                cun_s[:] = cun_s[:] + cusq[None]
-            else:
-                tu, tx, dxn, cst, cmax = out
-            tu_o[0, jt] = tu
-            tx_o[0, jt] = tx
-            nc_s[:] = nc_s[:] + cst[None]
-            mc_s[:] = jnp.maximum(mc_s[:], cmax[None])
-            dx_s[:] = dxn
-
-        @pl.when(t == 2 * Tb - 1)
-        def _():
-            txT, cT = term_f(xT_ref[0], dx_s[:], *ct_f)
-            txT_o[0] = txT
-            nc_o[0, 0] = nc_s[0] + cT
-            mc_o[0, 0] = mc_s[0]
-            if with_cu:
-                cun_o[0, 0] = cun_s[0]
-
-
-# ---------------------------------------------------------------------------
-# Host wrapper
-# ---------------------------------------------------------------------------
-
-
-def _pack_vec(v, Bp, S):
-    """(B, k) -> (C, k, S, LANES)."""
-    B, k = v.shape
-    C = Bp // (S * LANES)
-    return jnp.moveaxis(
-        jnp.pad(jnp.moveaxis(v, 0, -1), ((0, 0), (0, Bp - B))).reshape(
-            k, C, S, LANES
-        ),
-        1, 0,
-    )
-
-
-_MERGED_VMEM_BUDGET = 6 * 2 ** 20
-
-
-def _merged_fits(T, nx, nu, S, dtype) -> bool:
-    """Gate for the one-launch merged kernel: its VMEM scratch (dominated
-    by the (T, (1+nx)*nu) gains ring) must leave headroom for the block
-    windows and double buffering within the ~16 MB/core VMEM."""
-    ng = (1 + nx) * nu
-    rows = T * ng + nx * nx + 3 * nx + 7
-    return rows * S * LANES * jnp.dtype(dtype).itemsize <= _MERGED_VMEM_BUDGET
-
-
-def _use_merged(T, nx, nu, S, dtype) -> bool:
-    """Default OFF for the Newton path: measured end-to-end on v5e the
-    merged kernel is ~5% SLOWER than two launches (166 vs 158 us/step in
-    the stream at B=2048, T=100) — the saved launch + gains round trip do
-    not pay for the conditional-index-map overhead (docs/PERFORMANCE.md).
-    ``IPOC_FUSED_MERGED=1`` re-enables it for measurement.  The DDP path
-    always uses the merged kernel (its only fused implementation)."""
-    import os
-
-    if os.environ.get("IPOC_FUSED_MERGED", "0") != "1":
-        return False
-    return _merged_fits(T, nx, nu, S, dtype)
-
-
-def fused_newton_iter_packed(ocp: OCP, xs_p, xT_p, u_p, bp_p, reg_p,
-                             interpret: bool = False,
-                             merged: bool | None = None,
-                             ddp: bool = False,
-                             with_cu: bool = False,
-                             time_block: int | None = None):
-    """Packed-layout fused Newton iteration core.
-
-    Same math as :func:`fused_newton_iter_batched`, but inputs AND outputs
-    stay in the kernels' native packed layout — stage arrays
-    ``(C, T, rows, S, LANES)``, per-lane scalars ``(C, 1, S, LANES)`` —
-    so a caller iterating many times (the packed stream,
-    solvers/packed_stream.py) pays no per-iteration pack/unpack relayout.
-    The unpacked (B, T, ...) lane layout forces XLA to pad the tiny minor
-    dims (nx=4 -> 8 sublanes x 128 lanes tiles) in every glue op and to
-    transpose at each kernel boundary — the measured cause of the
-    overhead-bound roofline (docs/PERFORMANCE.md).
-
-    ``with_cu`` (supported on both the two-launch and merged paths — the
-    default-on packed DDP path calls the merged kernel with it) additionally
-    returns the trial point's ``sum(cu^2)`` so the next iteration's
-    Levenberg scale needs no separate gradient pass.
-
-    Returns ``(tu_p, tx_p, txT_p, cost_p, nc_p, mc_p, dv_p, piv_p, hu_p
-    [, cun_p])``; stage outputs hold stages 0..T-1 and the trial terminal
-    state is the separate ``txT_p (C, nx, S, LANES)``.  ``piv_p`` is the
-    minimum tracked pivot (bwd_ok == isfinite(piv) & piv > 0 &
-    isfinite(pred), applied by the caller).
-    """
-    C, T, nx, S, L = xs_p.shape
-    assert L == LANES
-    nu = u_p.shape[2]
-    dtype = u_p.dtype
-    ng = (1 + nx) * nu
-
-    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
-    stage_b, cs_b = _lift(
-        _stage_bwd_fn(ocp, nx, nu), sds((nx,)), sds((nu,)), sds(()),
-        sds((nx,)),
-    )
-    term_b, ct_b = _lift(_term_fn(ocp, nx), sds((nx,)))
-    if ddp:
-        fwd_fn = _stage_ddp_fwd_fn(ocp, nx, nu, with_cu=with_cu)
-    else:
-        fwd_fn = _stage_fwd_fn(ocp, nx, nu, with_cu=with_cu)
-    stage_f, cs_f = _lift(
-        fwd_fn, sds((nx,)), sds((nu,)), sds(()),
-        sds((nx,)), sds((ng,)),
-    )
-    term_f, ct_f = _lift(
-        (_term_ddp_fwd_fn if ddp else _term_fwd_fn)(ocp),
-        sds((nx,)), sds((nx,)),
-    )
-
-    tb = pick_time_block(T) if time_block is None else time_block
-    if T % tb != 0:
-        raise ValueError(f"time_block {tb} must divide T={T}")
-    Tb = T // tb
-    const_spec = lambda rows: _const_spec(rows, S)      # noqa: E731
-    rev_spec = lambda rows: _rev_spec(rows, S, Tb, tb)  # noqa: E731
-    fwd_spec = lambda rows: _fwd_spec(rows, S, tb)      # noqa: E731
-    bcast_spec = lambda rows: _bcast_spec(rows, S)      # noqa: E731
-    scal_spec = lambda: _scal_spec(S)                   # noqa: E731
-
-    if merged is None:
-        merged = _use_merged(T, nx, nu, S, dtype)
-    if ddp and not merged:
-        raise ValueError(
-            "the fused DDP iteration is only implemented as the merged "
-            "one-launch kernel (gains ring must fit VMEM; see _merged_fits)"
-        )
-    if merged:
-        # Merged-kernel time-blocking only when the caller EXPLICITLY
-        # requested a time_block (the hardware-proven DDP dispatch path
-        # stays at tb=1 unless measured otherwise).
-        tb_m = tb if time_block is not None else 1
-        Tb_m = T // tb_m
-        ker = functools.partial(
-            _fused_iter_merged_kernel, nx=nx, nu=nu, T=T,
-            stage_b=stage_b, term_b=term_b, stage_f=stage_f, term_f=term_f,
-            n_cs_b=len(cs_b), n_ct_b=len(ct_b),
-            n_cs_f=len(cs_f), n_ct_f=len(ct_f), ddp=ddp, with_cu=with_cu,
-            tb=tb_m,
-        )
-        ng_rows = ng
-        with jax.enable_x64(False):
-            merged_outs = pl.pallas_call(
-                ker,
-                grid=(C, 2 * Tb_m),
-                out_shape=(
-                    jax.ShapeDtypeStruct((C, T, nu, S, LANES), dtype),
-                    jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                    jax.ShapeDtypeStruct((C, nx, S, LANES), dtype),
-                ) + (jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),) * (
-                    7 if with_cu else 6),
-                in_specs=[
-                    _iter_spec(nx, S, Tb_m, tb_m),
-                    _iter_spec(nu, S, Tb_m, tb_m),
-                    bcast_spec(nx), scal_spec(), scal_spec(),
-                ] + [const_spec(c.size) for c in cs_b]
-                  + [const_spec(c.size) for c in ct_b]
-                  + [const_spec(c.size) for c in cs_f]
-                  + [const_spec(c.size) for c in ct_f],
-                out_specs=(
-                    _iter_out_spec(nu, S, Tb_m, tb_m),
-                    _iter_out_spec(nx, S, Tb_m, tb_m),
-                    bcast_spec(nx),
-                ) + (scal_spec(),) * (7 if with_cu else 6),
-                scratch_shapes=[
-                    pltpu.VMEM((T, ng_rows, S, LANES), dtype),
-                    pltpu.VMEM((nx * nx, S, LANES), dtype),
-                    pltpu.VMEM((nx, S, LANES), dtype),
-                    pltpu.VMEM((nx, S, LANES), dtype),
-                    pltpu.VMEM((1, S, LANES), dtype),
-                    pltpu.VMEM((1, S, LANES), dtype),
-                    pltpu.VMEM((1, S, LANES), dtype),
-                    pltpu.VMEM((1, S, LANES), dtype),
-                    pltpu.VMEM((nx, S, LANES), dtype),
-                    pltpu.VMEM((1, S, LANES), dtype),
-                    pltpu.VMEM((1, S, LANES), dtype),
-                ] + ([pltpu.VMEM((1, S, LANES), dtype)] if with_cu else []),
-                interpret=interpret,
-            )(xs_p, u_p, xT_p, bp_p, reg_p,
-              *_pack_consts(cs_b, S), *_pack_consts(ct_b, S),
-              *_pack_consts(cs_f, S), *_pack_consts(ct_f, S))
-
-        if with_cu:
-            (tu_p, tx_p, txT_p, cost_p, dv_p, piv_p, hu_p, nc_p, mc_p,
-             cun_p) = merged_outs
-            return (tu_p, tx_p, txT_p, cost_p, nc_p, mc_p, dv_p, piv_p,
-                    hu_p, cun_p)
-        (tu_p, tx_p, txT_p, cost_p, dv_p, piv_p, hu_p, nc_p,
-         mc_p) = merged_outs
-        return (tu_p, tx_p, txT_p, cost_p, nc_p, mc_p, dv_p, piv_p, hu_p)
-
-    bwd = functools.partial(
-        _fused_bwd_kernel, nx=nx, nu=nu, T=T,
-        stage=stage_b, term=term_b,
-        n_cs=len(cs_b), n_ct=len(ct_b), tb=tb,
-    )
-    with jax.enable_x64(False):
-        Kk, cost_p, dv_p, piv_p, hu_p = pl.pallas_call(
-            bwd,
-            grid=(C, Tb),
-            out_shape=(
-                jax.ShapeDtypeStruct((C, T, ng, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-            ),
-            in_specs=[
-                rev_spec(nx), rev_spec(nu), bcast_spec(nx),
-                scal_spec(), scal_spec(),
-            ] + [const_spec(c.size) for c in cs_b]
-              + [const_spec(c.size) for c in ct_b],
-            out_specs=(
-                rev_spec(ng), scal_spec(), scal_spec(), scal_spec(),
-                scal_spec(),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((nx * nx, S, LANES), dtype),
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-            ],
-            interpret=interpret,
-        )(xs_p, u_p, xT_p, bp_p, reg_p,
-          *_pack_consts(cs_b, S), *_pack_consts(ct_b, S))
-
-        fwd = functools.partial(
-            _fused_fwd_kernel, nx=nx, nu=nu, T=T,
-            stage=stage_f, term=term_f,
-            n_cs=len(cs_f), n_ct=len(ct_f), with_cu=with_cu, tb=tb,
-        )
-        outs = pl.pallas_call(
-            fwd,
-            grid=(C, Tb),
-            out_shape=(
-                jax.ShapeDtypeStruct((C, T, nu, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-            ) + ((jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),)
-                 if with_cu else ()),
-            in_specs=[
-                fwd_spec(nx), fwd_spec(nu), bcast_spec(nx), scal_spec(),
-                fwd_spec(ng),
-            ] + [const_spec(c.size) for c in cs_f]
-              + [const_spec(c.size) for c in ct_f],
-            out_specs=(
-                fwd_spec(nu), fwd_spec(nx), bcast_spec(nx), scal_spec(),
-                scal_spec(),
-            ) + ((scal_spec(),) if with_cu else ()),
-            scratch_shapes=[
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-            ] + ([pltpu.VMEM((1, S, LANES), dtype)] if with_cu else []),
-            interpret=interpret,
-        )(xs_p, u_p, xT_p, bp_p, Kk,
-          *_pack_consts(cs_f, S), *_pack_consts(ct_f, S))
-    if with_cu:
-        tu_p, tx_p, txT_p, nc_p, mc_p, cun_p = outs
-        return (tu_p, tx_p, txT_p, cost_p, nc_p, mc_p, dv_p, piv_p, hu_p,
-                cun_p)
-    tu_p, tx_p, txT_p, nc_p, mc_p = outs
-    return (tu_p, tx_p, txT_p, cost_p, nc_p, mc_p, dv_p, piv_p, hu_p)
+    zero = jnp.zeros_like(bp)
+    carry = ([zero] * nx, zero, jnp.full_like(bp, -jnp.inf))
+    dx, cost, mc = jax.lax.fori_loop(0, T, body, carry)
+    txT, cT = term(_rows(x_ref, T, nx), dx)
+    for i, v in enumerate(txT):
+        tx_ref[T, i, :] = v
+    out_ref[0, :] = cost + cT[0]
+    out_ref[1, :] = mc
 
 
 def fused_newton_iter_batched(ocp: OCP, x, u, bp, reg,
-                              sublanes: int = SUBLANES,
+                              block_lanes: int = BLOCK_LANES,
                               interpret: bool = False,
-                              merged: bool | None = None,
-                              ddp: bool = False):
-    """One fully-fused batched Newton iteration (one or two Pallas launches).
+                              with_pivot: bool = False):
+    """One fused batched Newton trial evaluation (two Triton launches).
 
     Shapes: x (B,T+1,nx), u (B,T,nu), bp (B,), reg (B,) — reg is the
-    Levenberg parameter already scaled by max(||cu||_F, floor).
-
-    Thin unpacking wrapper over :func:`fused_newton_iter_packed` (packs the
-    lane-major inputs into the kernels' (C, T, rows, S, LANES) layout and
-    unpacks the results; the packed stream bypasses this round trip).
+    Levenberg parameter already scaled by max(||cu||_F, floor).  The batch
+    is padded to a multiple of ``block_lanes`` (a power of two) by
+    repeating the last scenario.
 
     Returns ``(temp_x, temp_u, cost, new_cost_raw, max_constraint, pred,
     bwd_ok, Hu_norm)`` with temp_x (B,T+1,nx), temp_u (B,T,nu) and the rest
-    (B,).  The trial is feasible iff ``max_constraint <= 0``;
-    ``new_cost_raw`` is only meaningful for feasible trials (the barrier
-    logs are NaN beyond the boundary, reference par:159-163 semantics are
-    restored by the caller's ``where``).
+    (B,), as :func:`_fused_reference`.  The trial is feasible iff
+    ``max_constraint <= 0``; ``new_cost_raw`` is only meaningful for
+    feasible trials (the caller's ``where`` restores reference
+    par:159-163 semantics).  ``with_pivot`` appends the minimum pivot of
+    the backward sweep (the margin behind ``bwd_ok``).
     """
     B, Tp1, nx = x.shape
     T = Tp1 - 1
     nu = u.shape[-1]
-    S = sublanes
-    chunk = S * LANES
-    Bp = _ceil_to(B, chunk)
+    BL = block_lanes
+    if BL & (BL - 1):
+        raise ValueError(f"block_lanes must be a power of two, got {BL}")
+    dtype = x.dtype
+    Bp = -(-B // BL) * BL
+    ng = nu * (1 + nx)
 
-    xs_p = _pack_s(x[:, :-1], Bp, S)
-    u_p = _pack_s(u, Bp, S)
-    xT_p = _pack_vec(x[:, -1], Bp, S)
-    bp_p = _pack_vec(bp[:, None], Bp, S)
-    reg_p = _pack_vec(reg[:, None], Bp, S)
+    def lanes_last(a):
+        a = jnp.pad(a, ((0, Bp - B),) + ((0, 0),) * (a.ndim - 1), mode="edge")
+        return jnp.moveaxis(a, 0, -1)
 
-    (tu_p, tx_p, txT_p, cost_p, nc_p, mc_p, dv_p, piv_p, hu_p) = (
-        fused_newton_iter_packed(
-            ocp, xs_p, xT_p, u_p, bp_p, reg_p,
-            interpret=interpret, merged=merged, ddp=ddp,
-        )
-    )
+    xl, ul, bpl, regl = (lanes_last(a) for a in (x, u, bp, reg))
+    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
+    stage_b = scalar_lift(_stage_bwd_fn(ocp, nx, nu), sds((nx,)),
+                          sds((nu,)), sds(()), sds((nx,)))
+    term_b = scalar_lift(_term_fn(ocp, nx), sds((nx,)))
+    stage_f = scalar_lift(_stage_fwd_fn(ocp, nx, nu), sds((nx,)), sds((nu,)),
+                          sds(()), sds((nx,)), sds((ng,)))
+    term_f = scalar_lift(_term_fwd_fn(ocp), sds((nx,)), sds((nx,)))
 
-    temp_u = _unpack_s(tu_p, B, (nu,))
-    tx_stages = _unpack_s(tx_p, B, (nx,))
-    txT = _unpack_s(txT_p[:, None], B, (nx,))[:, 0]
-    temp_x = jnp.concatenate([tx_stages, txT[:, None]], axis=1)
+    def spec(*rows):
+        return pl.BlockSpec(rows + (BL,), lambda b: (0,) * len(rows) + (b,))
 
-    def _scal(p):
-        return _unpack_s(p[:, None], B, (1,))[:, 0, 0]
+    params = pl_triton.CompilerParams(num_warps=max(1, BL // 32),
+                                      num_stages=1)
+    grid = (Bp // BL,)
+    with jax.enable_x64(False):
+        kk, bwd_out = pl.pallas_call(
+            functools.partial(_bwd_kernel, nx=nx, nu=nu, T=T, stage=stage_b,
+                              term=term_b),
+            grid=grid,
+            in_specs=[spec(Tp1, nx), spec(T, nu), spec(), spec()],
+            out_specs=[spec(T, ng), spec(4)],
+            out_shape=[sds((T, ng, Bp)), sds((4, Bp))],
+            compiler_params=params, backend="triton", interpret=interpret,
+            name=BWD_NAME,
+        )(xl, ul, bpl, regl)
+        tx, tu, fwd_out = pl.pallas_call(
+            functools.partial(_fwd_kernel, nx=nx, nu=nu, T=T, stage=stage_f,
+                              term=term_f),
+            grid=grid,
+            in_specs=[spec(Tp1, nx), spec(T, nu), spec(), spec(T, ng)],
+            out_specs=[spec(Tp1, nx), spec(T, nu), spec(2)],
+            out_shape=[sds((Tp1, nx, Bp)), sds((T, nu, Bp)), sds((2, Bp))],
+            compiler_params=params, backend="triton", interpret=interpret,
+            name=FWD_NAME,
+        )(xl, ul, bpl, kk)
 
-    cost = _scal(cost_p)
-    new_cost_raw = _scal(nc_p)
-    max_c = _scal(mc_p)
-    pred = _scal(dv_p)
-    piv = _scal(piv_p)
-    hu = _scal(hu_p)
+    def unlane(a):
+        return jnp.moveaxis(a, -1, 0)[:B]
+
+    cost, pred, piv, hu = unlane(bwd_out).T
+    new_cost_raw, max_c = unlane(fwd_out).T
     ok = jnp.isfinite(piv) & (piv > 0) & jnp.isfinite(pred)
-    return temp_x, temp_u, cost, new_cost_raw, max_c, pred, ok, hu
+    out = (unlane(tx), unlane(tu), cost, new_cost_raw, max_c, pred, ok, hu)
+    return out + (piv,) if with_pivot else out
 
 
 # ---------------------------------------------------------------------------
-# Reference (unfused) composition + custom_vmap dispatch
+# Reference (plain XLA) compositions + custom_vmap dispatch
 # ---------------------------------------------------------------------------
 
 
@@ -1437,17 +441,10 @@ def _fused_reference(ocp: OCP, x, u, bp, reg):
     return temp_x, temp_u, cost, new_cost_raw, max_c, pred, ok, hu
 
 
-def use_fused_iter(dtype, nx: int) -> bool:
-    """Gate: the fused iteration kernel handles f32, small nx, on TPU."""
-    from ipoc_tpu.ops.pallas import use_pallas_scans
-
-    return use_pallas_scans(dtype, nx)
-
-
 def make_fused_iter(ocp: OCP):
-    """Per-lane fused-iteration op; under vmap dispatches ONE batched
-    two-launch Pallas program (or the vmapped reference composition where
-    the kernel gate is off — non-TPU backends, f64)."""
+    """Per-lane fused-iteration op.  Under vmap it runs the two Triton
+    launches where :func:`~ipoc_tpu.ops.pallas.use_fused_lane_iter` holds
+    (GPU, float32, nx <= 8) and the vmapped plain composition elsewhere."""
 
     @jax.custom_batching.custom_vmap
     def fused(x, u, bp, reg):
@@ -1455,15 +452,11 @@ def make_fused_iter(ocp: OCP):
 
     @fused.def_vmap
     def _fused_vmap(axis_size, in_batched, x, u, bp, reg):
-        from ipoc_tpu.ops.pallas.seq_newton_kernel import _broadcast_unbatched
-
-        x, u, bp, reg = _broadcast_unbatched(
-            axis_size, in_batched, (x, u, bp, reg)
-        )
-        nx = x.shape[-1]
-        if use_fused_iter(x.dtype, nx):
-            S = max(1, _stream_sublanes(axis_size))
-            out = fused_newton_iter_batched(ocp, x, u, bp, reg, sublanes=S)
+        x, u, bp, reg = (
+            a if b else jnp.broadcast_to(a, (axis_size,) + a.shape)
+            for a, b in zip((x, u, bp, reg), in_batched))
+        if use_fused_lane_iter(x.dtype, x.shape[-1]):
+            out = fused_newton_iter_batched(ocp, x, u, bp, reg)
         else:
             out = jax.vmap(
                 lambda a, b, c, d: _fused_reference(ocp, a, b, c, d)
@@ -1474,9 +467,9 @@ def make_fused_iter(ocp: OCP):
 
 
 def _fused_ddp_reference(ocp: OCP, x, u, bp, reg):
-    """Unbatched reference composition of the fused DDP iteration
+    """One IP-DDP trial evaluation with the fused iteration's interface
     (solvers/ip_ddp.py ddp_bwd_pass + nonlinear closed_loop_rollout with
-    the ``||cu||`` reg scale hoisted out, matching the kernel's interface).  Reference semantics:
+    the ``||cu||`` reg scale hoisted out).  Reference semantics:
     differential_dynamic_programming.py:28-90."""
     from ipoc_tpu.ops.derivatives import compute_derivatives
     from ipoc_tpu.solvers.ip_ddp import ddp_bwd_core
@@ -1490,620 +483,3 @@ def _fused_ddp_reference(ocp: OCP, x, u, bp, reg):
     max_c = jnp.max(jax.vmap(ocp.constraints)(temp_x[:-1], temp_u))
     hu = jnp.max(jnp.abs(Qu))
     return temp_x, temp_u, cost, new_cost_raw, max_c, pred, ok, hu
-
-
-def make_fused_ddp_iter(ocp: OCP):
-    """Per-lane fused DDP iteration; under vmap dispatches the ONE-launch
-    merged kernel in DDP mode (value-gradient-contracted backward sweep +
-    nonlinear closed-loop re-rollout), falling back to the vmapped
-    reference composition off-TPU / f64 / horizons whose gains ring
-    exceeds VMEM."""
-
-    @jax.custom_batching.custom_vmap
-    def fused(x, u, bp, reg):
-        return _fused_ddp_reference(ocp, x, u, bp, reg)
-
-    @fused.def_vmap
-    def _fused_vmap(axis_size, in_batched, x, u, bp, reg):
-        from ipoc_tpu.ops.pallas.seq_newton_kernel import _broadcast_unbatched
-
-        x, u, bp, reg = _broadcast_unbatched(
-            axis_size, in_batched, (x, u, bp, reg)
-        )
-        nx = x.shape[-1]
-        nu = u.shape[-1]
-        T = u.shape[-2]
-        S = max(1, _stream_sublanes(axis_size))
-        if use_fused_iter(x.dtype, nx) and _merged_fits(T, nx, nu, S,
-                                                        x.dtype):
-            out = fused_newton_iter_batched(ocp, x, u, bp, reg, sublanes=S,
-                                            ddp=True, merged=True)
-        else:
-            out = jax.vmap(
-                lambda a, b, c, d: _fused_ddp_reference(ocp, a, b, c, d)
-            )(x, u, bp, reg)
-        return out, (True,) * 8
-
-    return fused
-
-
-# ---------------------------------------------------------------------------
-# Fused nonlinear rollout (the remaining per-iteration XLA scan: each flat
-# stage transition re-rolls the trajectory through the true dynamics,
-# reference par:133)
-# ---------------------------------------------------------------------------
-
-
-def _rollout_kernel(u_ref, x0_ref, *refs, nx, nu, T, step, n_c):
-    c_refs = refs[:n_c]
-    xs_o = refs[n_c]
-    x_s = refs[n_c + 1]
-    cs = [r[0] for r in c_refs]
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        x_s[:] = x0_ref[0]
-
-    xn = step(x_s[:], u_ref[0, 0], *cs)
-    xs_o[0, 0] = xn
-    x_s[:] = xn
-
-
-def rollout_batched(dynamics, controls, x0, sublanes: int = SUBLANES,
-                    interpret: bool = False):
-    """Batched open-loop rollout as ONE Pallas launch, dynamics traced
-    in-kernel.  Shapes: controls (B,T,nu), x0 (B,nx) -> (B,T+1,nx),
-    matching utils/integrators.rollout under vmap."""
-    B, T, nu = controls.shape
-    nx = x0.shape[-1]
-    dtype = controls.dtype
-    S = sublanes
-    chunk = S * LANES
-    Bp = _ceil_to(B, chunk)
-    C = Bp // chunk
-
-    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
-    step, consts = _lift(dynamics, sds((nx,)), sds((nu,)))
-
-    u_p = _pack_s(controls, Bp, S)
-    x0_p = _pack_vec(x0, Bp, S)
-
-    fwd_spec = lambda rows: _fwd_spec(rows, S)          # noqa: E731
-
-    kernel = functools.partial(_rollout_kernel, nx=nx, nu=nu, T=T,
-                               step=step, n_c=len(consts))
-    with jax.enable_x64(False):
-        xs_p = pl.pallas_call(
-            kernel,
-            grid=(C, T),
-            out_shape=jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-            in_specs=[
-                fwd_spec(nu),
-                pl.BlockSpec((1, nx, S, LANES), lambda b, t: (b, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ] + [
-                pl.BlockSpec((1, c.size, S, LANES),
-                             lambda b, t: (0, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-                for c in consts
-            ],
-            out_specs=fwd_spec(nx),
-            scratch_shapes=[pltpu.VMEM((nx, S, LANES), dtype)],
-            interpret=interpret,
-        )(u_p, x0_p, *_pack_consts(consts, S))
-    tail = _unpack_s(xs_p, B, (nx,))
-    return jnp.concatenate([x0[:, None], tail], axis=1)
-
-
-def _stage_roll_cost_fn(ocp: OCP):
-    """Per-element rollout step fused with the stage cost evaluation."""
-
-    def stage(x, u, bp):
-        return ocp.dynamics(x, u), ocp.stage_cost(x, u, bp)
-
-    return stage
-
-
-def _rollout_cost_kernel(u_ref, x0_ref, bp_ref, *refs,
-                         T, step, term, n_c, n_ct):
-    c_refs = refs[:n_c]
-    ct_refs = refs[n_c:n_c + n_ct]
-    xs_o, cost_o = refs[n_c + n_ct:n_c + n_ct + 2]
-    x_s, cost_s = refs[n_c + n_ct + 2:]
-    cs = [r[0] for r in c_refs]
-    ct = [r[0] for r in ct_refs]
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        x_s[:] = x0_ref[0]
-        cost_s[:] = jnp.zeros_like(cost_s)
-
-    xn, cst = step(x_s[:], u_ref[0, 0], bp_ref[0, 0], *cs)
-    xs_o[0, 0] = xn
-    cost_s[:] = cost_s[:] + cst[None]
-    x_s[:] = xn
-
-    @pl.when(t == T - 1)
-    def _():
-        cost_o[0, 0] = cost_s[0] + term(xn, *ct)
-
-
-def rollout_cost_batched(ocp: OCP, controls, x0, bp,
-                         sublanes: int = SUBLANES, interpret: bool = False):
-    """Batched open-loop rollout fused with the barrier total cost, ONE
-    Pallas launch.  Shapes: controls (B,T,nu), x0 (B,nx), bp (B,) ->
-    ``(states (B,T+1,nx), total_cost (B,))`` matching
-    ``rollout`` + ``ocp.total_cost`` under vmap (an infeasible trajectory
-    yields NaN/Inf cost through the barrier logs)."""
-    B, T, nu = controls.shape
-    nx = x0.shape[-1]
-    dtype = controls.dtype
-    S = sublanes
-    chunk = S * LANES
-    Bp = _ceil_to(B, chunk)
-    C = Bp // chunk
-
-    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
-    step, consts = _lift(_stage_roll_cost_fn(ocp), sds((nx,)), sds((nu,)),
-                         sds(()))
-    term, ct = _lift(ocp.final_cost, sds((nx,)))
-
-    u_p = _pack_s(controls, Bp, S)
-    x0_p = _pack_vec(x0, Bp, S)
-    bp_p = _pack_vec(bp[:, None], Bp, S)
-
-    fwd_spec = lambda rows: _fwd_spec(rows, S)          # noqa: E731
-    bcast_spec = lambda rows: _bcast_spec(rows, S)      # noqa: E731
-    scal_spec = lambda: _scal_spec(S)                   # noqa: E731
-
-    kernel = functools.partial(
-        _rollout_cost_kernel, T=T, step=step, term=term,
-        n_c=len(consts), n_ct=len(ct),
-    )
-    with jax.enable_x64(False):
-        xs_p, cost_p = pl.pallas_call(
-            kernel,
-            grid=(C, T),
-            out_shape=(
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-            ),
-            in_specs=[fwd_spec(nu), bcast_spec(nx), scal_spec()] + [
-                pl.BlockSpec((1, c.size, S, LANES),
-                             lambda b, t: (0, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-                for c in list(consts) + list(ct)
-            ],
-            out_specs=(fwd_spec(nx), scal_spec()),
-            scratch_shapes=[
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-            ],
-            interpret=interpret,
-        )(u_p, x0_p, bp_p, *_pack_consts(list(consts) + list(ct), S))
-    tail = _unpack_s(xs_p, B, (nx,))
-    states = jnp.concatenate([x0[:, None], tail], axis=1)
-    cost = _unpack_s(cost_p[:, None], B, (1,))[:, 0, 0]
-    return states, cost
-
-
-def _stage_transition_fn(ocp: OCP, with_cu: bool = False):
-    """Two candidate rollout steps + stage costs in one per-element body
-    (the stage-predictor transition: plain warm start vs extrapolated).
-
-    ``with_cu`` adds each candidate's ``sum(cu^2)`` stage contribution (the
-    Levenberg scale of the candidate adopted at the stage transition —
-    packed-stream path)."""
-
-    def stage(xa, xb, u, up, bp):
-        out = (
-            ocp.dynamics(xa, u),
-            ocp.dynamics(xb, up),
-            ocp.stage_cost(xa, u, bp),
-            ocp.stage_cost(xb, up, bp),
-        )
-        if with_cu:
-            cua = jax.grad(ocp.stage_cost, 1)(xa, u, bp)
-            cub = jax.grad(ocp.stage_cost, 1)(xb, up, bp)
-            out = out + (jnp.sum(cua * cua), jnp.sum(cub * cub))
-        return out
-
-    return stage
-
-
-def _transition_kernel(u_ref, up_ref, x0_ref, bp_ref, *refs,
-                       T, step, term, n_c, n_ct):
-    c_refs = refs[:n_c]
-    ct_refs = refs[n_c:n_c + n_ct]
-    xa_o, xb_o, ca_o, cb_o = refs[n_c + n_ct:n_c + n_ct + 4]
-    xa_s, xb_s, ca_s, cb_s = refs[n_c + n_ct + 4:]
-    cs = [r[0] for r in c_refs]
-    ct = [r[0] for r in ct_refs]
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        xa_s[:] = x0_ref[0]
-        xb_s[:] = x0_ref[0]
-        ca_s[:] = jnp.zeros_like(ca_s)
-        cb_s[:] = jnp.zeros_like(cb_s)
-
-    xan, xbn, csta, cstb = step(
-        xa_s[:], xb_s[:], u_ref[0, 0], up_ref[0, 0], bp_ref[0, 0], *cs
-    )
-    xa_o[0, 0] = xan
-    xb_o[0, 0] = xbn
-    ca_s[:] = ca_s[:] + csta[None]
-    cb_s[:] = cb_s[:] + cstb[None]
-    xa_s[:] = xan
-    xb_s[:] = xbn
-
-    @pl.when(t == T - 1)
-    def _():
-        ca_o[0, 0] = ca_s[0] + term(xan, *ct)
-        cb_o[0, 0] = cb_s[0] + term(xbn, *ct)
-
-
-def transition_batched(ocp: OCP, controls, controls_pred, x0, bp,
-                       sublanes: int = SUBLANES, interpret: bool = False):
-    """Both stage-transition candidates (plain warm start + central-path
-    prediction) rolled out with their barrier total costs in ONE Pallas
-    launch.  Shapes: controls/controls_pred (B,T,nu), x0 (B,nx), bp (B,) ->
-    ``(x_plain (B,T+1,nx), x_pred (B,T+1,nx), cost_plain (B,),
-    cost_pred (B,))``."""
-    B, T, nu = controls.shape
-    nx = x0.shape[-1]
-    dtype = controls.dtype
-    S = sublanes
-    chunk = S * LANES
-    Bp = _ceil_to(B, chunk)
-    C = Bp // chunk
-
-    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
-    step, consts = _lift(_stage_transition_fn(ocp), sds((nx,)), sds((nx,)),
-                         sds((nu,)), sds((nu,)), sds(()))
-    term, ct = _lift(ocp.final_cost, sds((nx,)))
-
-    u_p = _pack_s(controls, Bp, S)
-    up_p = _pack_s(controls_pred, Bp, S)
-    x0_p = _pack_vec(x0, Bp, S)
-    bp_p = _pack_vec(bp[:, None], Bp, S)
-
-    fwd_spec = lambda rows: _fwd_spec(rows, S)          # noqa: E731
-    bcast_spec = lambda rows: _bcast_spec(rows, S)      # noqa: E731
-    scal_spec = lambda: _scal_spec(S)                   # noqa: E731
-
-    kernel = functools.partial(
-        _transition_kernel, T=T, step=step, term=term,
-        n_c=len(consts), n_ct=len(ct),
-    )
-    with jax.enable_x64(False):
-        xa_p, xb_p, ca_p, cb_p = pl.pallas_call(
-            kernel,
-            grid=(C, T),
-            out_shape=(
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-            ),
-            in_specs=[fwd_spec(nu), fwd_spec(nu), bcast_spec(nx),
-                      scal_spec()] + [
-                pl.BlockSpec((1, c.size, S, LANES),
-                             lambda b, t: (0, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-                for c in list(consts) + list(ct)
-            ],
-            out_specs=(fwd_spec(nx), fwd_spec(nx), scal_spec(), scal_spec()),
-            scratch_shapes=[
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-            ],
-            interpret=interpret,
-        )(u_p, up_p, x0_p, bp_p, *_pack_consts(list(consts) + list(ct), S))
-
-    def _states(p):
-        tail = _unpack_s(p, B, (nx,))
-        return jnp.concatenate([x0[:, None], tail], axis=1)
-
-    def _scal(p):
-        return _unpack_s(p[:, None], B, (1,))[:, 0, 0]
-
-    return _states(xa_p), _states(xb_p), _scal(ca_p), _scal(cb_p)
-
-
-def make_fused_transition(ocp: OCP):
-    """Per-lane two-candidate transition op; under vmap ONE Pallas launch
-    (plain scans + total_cost off-TPU/f64)."""
-    from ipoc_tpu.utils.integrators import rollout
-
-    def reference(u, up, x0, bp):
-        xa = rollout(ocp.dynamics, u, x0)
-        xb = rollout(ocp.dynamics, up, x0)
-        return xa, xb, ocp.total_cost(xa, u, bp), ocp.total_cost(xb, up, bp)
-
-    @jax.custom_batching.custom_vmap
-    def trans(u, up, x0, bp):
-        return reference(u, up, x0, bp)
-
-    @trans.def_vmap
-    def _trans_vmap(axis_size, in_batched, u, up, x0, bp):
-        from ipoc_tpu.ops.pallas.seq_newton_kernel import _broadcast_unbatched
-
-        u, up, x0, bp = _broadcast_unbatched(
-            axis_size, in_batched, (u, up, x0, bp))
-        if use_fused_iter(u.dtype, x0.shape[-1]):
-            S = max(1, _stream_sublanes(axis_size))
-            out = transition_batched(ocp, u, up, x0, bp, sublanes=S)
-        else:
-            out = jax.vmap(reference)(u, up, x0, bp)
-        return out, (True,) * 4
-
-    return trans
-
-
-def make_fused_rollout_cost(ocp: OCP):
-    """Per-lane (rollout, barrier total cost) op; under vmap dispatches the
-    one-launch fused kernel (plain scan + total_cost off-TPU/f64)."""
-    from ipoc_tpu.utils.integrators import rollout
-
-    def reference(u, x0, bp):
-        x = rollout(ocp.dynamics, u, x0)
-        return x, ocp.total_cost(x, u, bp)
-
-    @jax.custom_batching.custom_vmap
-    def roll_cost(u, x0, bp):
-        return reference(u, x0, bp)
-
-    @roll_cost.def_vmap
-    def _roll_cost_vmap(axis_size, in_batched, u, x0, bp):
-        from ipoc_tpu.ops.pallas.seq_newton_kernel import _broadcast_unbatched
-
-        u, x0, bp = _broadcast_unbatched(axis_size, in_batched, (u, x0, bp))
-        if use_fused_iter(u.dtype, x0.shape[-1]):
-            S = max(1, _stream_sublanes(axis_size))
-            out = rollout_cost_batched(ocp, u, x0, bp, sublanes=S)
-        else:
-            out = jax.vmap(reference)(u, x0, bp)
-        return out, (True, True)
-
-    return roll_cost
-
-
-# ---------------------------------------------------------------------------
-# Packed-layout rollout / transition kernels (packed-stream path)
-#
-# These differ from the unpacked variants above in two ways chosen for the
-# packed lane state (solvers/packed_stream.py):
-#   * stage outputs hold the PRE-step states x_0..x_{T-1} (exactly the lane
-#     layout), with the terminal state a separate (C, nx, S, LANES) output —
-#     no concat/shift relayout on adoption;
-#   * they accumulate sum(cu^2) so the next Levenberg scale is free.
-# ---------------------------------------------------------------------------
-
-
-def _rollout_cost_packed_kernel(u_ref, x0_ref, bp_ref, *refs,
-                                T, step, term, n_c, n_ct, tb=1):
-    c_refs = refs[:n_c]
-    ct_refs = refs[n_c:n_c + n_ct]
-    xs_o, xT_o, cost_o, cun_o = refs[n_c + n_ct:n_c + n_ct + 4]
-    x_s, cost_s, cun_s = refs[n_c + n_ct + 4:]
-    cs = [r[0] for r in c_refs]
-    ct = [r[0] for r in ct_refs]
-    t = pl.program_id(1)
-    Tb = T // tb
-
-    @pl.when(t == 0)
-    def _():
-        x_s[:] = x0_ref[0]
-        cost_s[:] = jnp.zeros_like(cost_s)
-        cun_s[:] = jnp.zeros_like(cun_s)
-
-    bp = bp_ref[0, 0]
-    for j in range(tb):
-        x = x_s[:]
-        xs_o[0, j] = x
-        xn, cst, cusq = step(x, u_ref[0, j], bp, *cs)
-        cost_s[:] = cost_s[:] + cst[None]
-        cun_s[:] = cun_s[:] + cusq[None]
-        x_s[:] = xn
-
-    @pl.when(t == Tb - 1)
-    def _():
-        xT_o[0] = xn
-        cost_o[0, 0] = cost_s[0] + term(xn, *ct)
-        cun_o[0, 0] = cun_s[0]
-
-
-def _stage_roll_cost_cu_fn(ocp: OCP):
-    def stage(x, u, bp):
-        cu = jax.grad(ocp.stage_cost, 1)(x, u, bp)
-        return (ocp.dynamics(x, u), ocp.stage_cost(x, u, bp),
-                jnp.sum(cu * cu))
-
-    return stage
-
-
-def rollout_cost_packed(ocp: OCP, u_p, x0_p, bp_p, interpret: bool = False,
-                        time_block: int | None = None):
-    """Packed open-loop rollout + barrier cost + ||cu||^2, ONE launch.
-
-    Shapes: u_p (C,T,nu,S,LANES), x0_p (C,nx,S,LANES), bp_p (C,1,S,LANES)
-    -> (xs_p (C,T,nx,S,LANES) stages 0..T-1, xT_p (C,nx,S,LANES),
-    cost_p (C,1,S,LANES), cun_p (C,1,S,LANES))."""
-    C, T, nu, S, L = u_p.shape
-    nx = x0_p.shape[1]
-    dtype = u_p.dtype
-
-    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
-    step, consts = _lift(_stage_roll_cost_cu_fn(ocp), sds((nx,)),
-                         sds((nu,)), sds(()))
-    term, ct = _lift(ocp.final_cost, sds((nx,)))
-
-    tb = pick_time_block(T) if time_block is None else time_block
-    if T % tb != 0:
-        raise ValueError(f"time_block {tb} must divide T={T}")
-    Tb = T // tb
-    kernel = functools.partial(
-        _rollout_cost_packed_kernel, T=T, step=step, term=term,
-        n_c=len(consts), n_ct=len(ct), tb=tb,
-    )
-    with jax.enable_x64(False):
-        xs_p, xT_p, cost_p, cun_p = pl.pallas_call(
-            kernel,
-            grid=(C, Tb),
-            out_shape=(
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-            ),
-            in_specs=[_fwd_spec(nu, S, tb), _bcast_spec(nx, S),
-                      _scal_spec(S)]
-            + [_const_spec(c.size, S) for c in list(consts) + list(ct)],
-            out_specs=(_fwd_spec(nx, S, tb), _bcast_spec(nx, S),
-                       _scal_spec(S), _scal_spec(S)),
-            scratch_shapes=[
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-            ],
-            interpret=interpret,
-        )(u_p, x0_p, bp_p, *_pack_consts(list(consts) + list(ct), S))
-    return xs_p, xT_p, cost_p, cun_p
-
-
-def _transition_packed_kernel(u_ref, up_ref, x0_ref, bp_ref, *refs,
-                              T, step, term, n_c, n_ct, tb=1):
-    c_refs = refs[:n_c]
-    ct_refs = refs[n_c:n_c + n_ct]
-    (xa_o, xb_o, xaT_o, xbT_o, ca_o, cb_o, cua_o, cub_o) = refs[
-        n_c + n_ct:n_c + n_ct + 8]
-    (xa_s, xb_s, ca_s, cb_s, cua_s, cub_s) = refs[n_c + n_ct + 8:]
-    cs = [r[0] for r in c_refs]
-    ct = [r[0] for r in ct_refs]
-    t = pl.program_id(1)
-    Tb = T // tb
-
-    @pl.when(t == 0)
-    def _():
-        xa_s[:] = x0_ref[0]
-        xb_s[:] = x0_ref[0]
-        ca_s[:] = jnp.zeros_like(ca_s)
-        cb_s[:] = jnp.zeros_like(cb_s)
-        cua_s[:] = jnp.zeros_like(cua_s)
-        cub_s[:] = jnp.zeros_like(cub_s)
-
-    bp = bp_ref[0, 0]
-    for j in range(tb):
-        xa_o[0, j] = xa_s[:]
-        xb_o[0, j] = xb_s[:]
-        xan, xbn, csta, cstb, cua, cub = step(
-            xa_s[:], xb_s[:], u_ref[0, j], up_ref[0, j], bp, *cs
-        )
-        ca_s[:] = ca_s[:] + csta[None]
-        cb_s[:] = cb_s[:] + cstb[None]
-        cua_s[:] = cua_s[:] + cua[None]
-        cub_s[:] = cub_s[:] + cub[None]
-        xa_s[:] = xan
-        xb_s[:] = xbn
-
-    @pl.when(t == Tb - 1)
-    def _():
-        xaT_o[0] = xan
-        xbT_o[0] = xbn
-        ca_o[0, 0] = ca_s[0] + term(xan, *ct)
-        cb_o[0, 0] = cb_s[0] + term(xbn, *ct)
-        cua_o[0, 0] = cua_s[0]
-        cub_o[0, 0] = cub_s[0]
-
-
-def transition_packed(ocp: OCP, u_p, up_p, x0_p, bp_p,
-                      interpret: bool = False,
-                      time_block: int | None = None):
-    """Packed two-candidate stage transition, ONE launch.
-
-    Shapes: u_p/up_p (C,T,nu,S,LANES), x0_p (C,nx,S,LANES), bp_p
-    (C,1,S,LANES) -> (xa_p, xb_p (C,T,nx,S,LANES) stages 0..T-1,
-    xaT_p, xbT_p (C,nx,S,LANES), cost_a, cost_b, cun_a, cun_b
-    (C,1,S,LANES) with cun = sum(cu^2) along the candidate)."""
-    C, T, nu, S, L = u_p.shape
-    nx = x0_p.shape[1]
-    dtype = u_p.dtype
-
-    sds = lambda shape: jax.ShapeDtypeStruct(shape, dtype)  # noqa: E731
-    step, consts = _lift(_stage_transition_fn(ocp, with_cu=True),
-                         sds((nx,)), sds((nx,)), sds((nu,)), sds((nu,)),
-                         sds(()))
-    term, ct = _lift(ocp.final_cost, sds((nx,)))
-
-    tb = pick_time_block(T) if time_block is None else time_block
-    if T % tb != 0:
-        raise ValueError(f"time_block {tb} must divide T={T}")
-    Tb = T // tb
-    kernel = functools.partial(
-        _transition_packed_kernel, T=T, step=step, term=term,
-        n_c=len(consts), n_ct=len(ct), tb=tb,
-    )
-    with jax.enable_x64(False):
-        outs = pl.pallas_call(
-            kernel,
-            grid=(C, Tb),
-            out_shape=(
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, T, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, nx, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-                jax.ShapeDtypeStruct((C, 1, S, LANES), dtype),
-            ),
-            in_specs=[_fwd_spec(nu, S, tb), _fwd_spec(nu, S, tb),
-                      _bcast_spec(nx, S), _scal_spec(S)]
-            + [_const_spec(c.size, S) for c in list(consts) + list(ct)],
-            out_specs=(
-                _fwd_spec(nx, S, tb), _fwd_spec(nx, S, tb),
-                _bcast_spec(nx, S), _bcast_spec(nx, S), _scal_spec(S),
-                _scal_spec(S), _scal_spec(S), _scal_spec(S),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((nx, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-                pltpu.VMEM((1, S, LANES), dtype),
-            ],
-            interpret=interpret,
-        )(u_p, up_p, x0_p, bp_p, *_pack_consts(list(consts) + list(ct), S))
-    return outs
-
-
-def make_fused_rollout(ocp: OCP):
-    """Per-lane open-loop rollout; under vmap dispatches the one-launch
-    Pallas kernel (plain scan rollout off-TPU/f64)."""
-    from ipoc_tpu.utils.integrators import rollout
-
-    @jax.custom_batching.custom_vmap
-    def roll(u, x0):
-        return rollout(ocp.dynamics, u, x0)
-
-    @roll.def_vmap
-    def _roll_vmap(axis_size, in_batched, u, x0):
-        from ipoc_tpu.ops.pallas.seq_newton_kernel import _broadcast_unbatched
-
-        u, x0 = _broadcast_unbatched(axis_size, in_batched, (u, x0))
-        if use_fused_iter(u.dtype, x0.shape[-1]):
-            S = max(1, _stream_sublanes(axis_size))
-            out = rollout_batched(ocp.dynamics, u, x0, sublanes=S)
-        else:
-            out = jax.vmap(lambda uu, xx: rollout(ocp.dynamics, uu, xx))(
-                u, x0)
-        return out, True
-
-    return roll

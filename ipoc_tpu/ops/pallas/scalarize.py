@@ -1,19 +1,12 @@
 """Scalar-DAG lifting: per-element jaxprs as simplified scalar expression
-graphs over trailing ``(S, LANES)`` tiles.
+graphs over lane vectors.
 
-:func:`~ipoc_tpu.ops.pallas.fused_iter_kernel._block_lift` replays the stage
-jaxpr's *vector* equations verbatim on blocked arrays.  That leaves two big
-chunks of dead work in the fused kernels:
-
-* the Hessian-column jvps (``jax.linearize`` applied to one-hot basis rows,
-  fused_iter_kernel.py ``_stage_bwd_fn``) do **dense** vector arithmetic
-  against tangent vectors that are almost entirely structural zeros — the
-  basis rows survive lift-time constant folding as whole arrays, so every
-  ``mul(·, 0)`` / ``add(·, 0)`` executes as a real Mosaic op;
-* vector-granularity CSE cannot merge subexpressions that are equal
-  element-wise but packaged in different vectors (XLA's scalar-level
-  simplifier does — measured ~an-order-of-magnitude cheaper for the same
-  stage derivatives out-of-kernel).
+The fused lane-iteration kernel (fused_iter_kernel.py) runs one scenario
+per GPU thread, so every matrix entry of a stage is one ``(BL,)`` lane
+vector.  The model's stage derivatives come from JAX AD (``jax.linearize``
+applied to one-hot basis rows), whose jaxprs do dense vector arithmetic
+against tangents that are almost entirely structural zeros, and recompute
+shared primal subexpressions across several traces.
 
 This module interprets the jaxpr with every array held as a numpy *object
 array of scalar nodes* (a hash-consed expression DAG).  Constants are plain
@@ -22,16 +15,13 @@ Python scalars, so
 * ``mul(x, 0) → 0``, ``mul(x, 1) → x``, ``add(x, 0) → x``, ... fold at
   build time — the one-hot jvp structure evaporates;
 * reshape/transpose/slice/broadcast/concatenate become free index
-  bookkeeping on the object arrays (no Mosaic relayouts);
+  bookkeeping on the object arrays;
 * hash-consing dedupes at scalar granularity across all the concatenated AD
-  traces (primal, jvp columns, jacrev, raw costs).
+  traces (primal, jvp columns, raw costs).
 
-Emission then maps each surviving node to ONE elementwise op on a
-``(S, LANES)`` tile — exactly the Mosaic-friendly form the fused kernels
-want.  The public entry :func:`scalar_lift` matches ``_block_lift``'s
-contract ``(blocked_fn, consts)`` with ``consts == []`` (every constant is
-inlined as a weak Python scalar), and raises :class:`NotImplementedError`
-for jaxprs it cannot scalarize (callers fall back to ``_block_lift``).
+Emission then maps each surviving node to ONE elementwise op on a lane
+vector.  :func:`scalar_lift` raises :class:`NotImplementedError` for
+jaxprs it cannot scalarize.
 
 Structural-zero caveat: folding ``mul(x, 0) → 0`` and ``div(0, x) → 0``
 assumes the dropped factor is finite/non-zero, which holds for AD basis
@@ -206,7 +196,7 @@ class _Builder:
         hit, val = self._simplify(name, params, args, in_dtypes)
         if hit:
             return val
-        # strength reduction: TPU divide costs several multiplies.
+        # strength reduction: a divide costs several multiplies.
         # Floating only: lax.div on integers is truncating division.
         if name == "div" and _is_const(args[1]) and all(
                 np.issubdtype(np.dtype(d), np.floating)
@@ -493,13 +483,16 @@ def _broadcast_like_iota(ar, shape, dim):
 
 
 def scalar_lift(fn, *example_args):
-    """Lift ``fn`` to trailing-``(S, LANES)`` blocks via a scalar DAG.
+    """Lift ``fn`` to lists of lane vectors via a scalar DAG.
 
-    Same contract as ``fused_iter_kernel._block_lift``: returns
-    ``(blocked_fn, consts)``; here ``consts`` is always ``[]`` because every
-    constant inlines as a weak Python scalar.  Raises
-    :class:`NotImplementedError` when the jaxpr contains primitives the
-    scalar interpreter does not cover (callers fall back to block lifting).
+    Returns ``lane_fn``.  It takes, for each argument of ``fn``, a sequence
+    of lane vectors holding that argument's elements in row-major order (a
+    0-d argument is a sequence of one vector), and returns a tuple with one
+    such list per output of ``fn``.  Every emitted operation is one
+    elementwise op on a lane vector, which is the form a one-scenario-per-
+    thread kernel wants.  ``lane_fn.stats`` counts the surviving ops and the
+    folding and CSE hits.  Raises :class:`NotImplementedError` when the
+    jaxpr contains primitives the scalar interpreter does not cover.
     """
     with jax.ensure_compile_time_eval(), jax.disable_jit():
         closed = jax.make_jaxpr(fn)(*example_args)
@@ -509,12 +502,9 @@ def scalar_lift(fn, *example_args):
         for pos, v in enumerate(jaxpr.invars):
             shape = tuple(v.aval.shape)
             a = np.empty(shape, dtype=object)
-            if shape == ():
-                a[()] = bld.input(pos, 0)
-            else:
-                flat = a.reshape(-1)
-                for i in range(flat.size):
-                    flat[i] = bld.input(pos, i)
+            flat = a.reshape(-1)
+            for i in range(flat.size):
+                flat[i] = bld.input(pos, i)
             args.append(a)
         outs = _interp(bld, jaxpr, [_obj(c) for c in closed.consts], args)
 
@@ -535,8 +525,8 @@ def scalar_lift(fn, *example_args):
         key=lambda nd: nd.order,
     )
 
-    out_avals = [v.aval for v in jaxpr.outvars]
-    in_shapes = [tuple(v.aval.shape) for v in jaxpr.invars]
+    out_dtypes = [v.aval.dtype for v in jaxpr.outvars]
+    n_in = len(jaxpr.invars)
     stats = {
         "ops": sum(1 for nd in order if nd.prim != "input"),
         "created": bld.n_created,
@@ -544,52 +534,37 @@ def scalar_lift(fn, *example_args):
         "cse_hits": bld.n_hits,
     }
 
-    def blocked(*call_args):
+    def lane_fn(*call_args):
         import jax.numpy as jnp
 
-        assert len(call_args) == len(in_shapes)
-        blk = tuple(call_args[0].shape[-2:])
+        assert len(call_args) == n_in
+        blk = jnp.shape(call_args[0][0])
         val = {}
         for nd in order:
             if nd.prim == "input":
                 pos, idx = nd.params
-                a = call_args[pos]
-                if in_shapes[pos] == ():
-                    val[id(nd)] = a
-                else:
-                    val[id(nd)] = a[
-                        tuple(int(i) for i in
-                              np.unravel_index(idx, in_shapes[pos]))]
-            else:
-                ins = [val[id(x)] if isinstance(x, _Node) else x
-                       for x in nd.args]
-                if nd.prim.name in ("select_n", "add_any"):
-                    # shape-strict primitives: materialize scalar consts
-                    ins = [
-                        v if isinstance(v, jax.Array)
-                        else jnp.full(blk, v, dtype=dt)
-                        for v, dt in zip(ins, nd.in_dtypes)
-                    ]
-                val[id(nd)] = nd.prim.bind(*ins, **nd.params)
+                val[id(nd)] = call_args[pos][idx]
+                continue
+            ins = [val[id(x)] if isinstance(x, _Node) else x
+                   for x in nd.args]
+            if nd.prim.name in ("select_n", "add_any"):
+                # shape-strict primitives: materialize scalar consts
+                ins = [v if hasattr(v, "shape") and v.shape == blk
+                       else jnp.full(blk, v, dtype=dt)
+                       for v, dt in zip(ins, nd.in_dtypes)]
+            val[id(nd)] = nd.prim.bind(*ins, **nd.params)
 
         results = []
-        for aval, arr in zip(out_avals, outs):
-            flat = arr.reshape(-1)
+        for dt, arr in zip(out_dtypes, outs):
             elems = []
-            for e in flat:
+            for e in arr.reshape(-1):
                 if _is_const(e):
-                    elems.append(jnp.full(blk, e, dtype=aval.dtype))
+                    elems.append(jnp.full(blk, e, dtype=dt))
                 else:
                     v = val[id(e)]
-                    if v.dtype != aval.dtype:
-                        v = v.astype(aval.dtype)
-                    elems.append(v)
-            if aval.shape == ():
-                results.append(elems[0])
-            else:
-                st = jnp.stack(elems, axis=0)
-                results.append(st.reshape(tuple(aval.shape) + blk))
-        return tuple(results) if len(results) > 1 else results[0]
+                    elems.append(v if v.dtype == dt else v.astype(dt))
+            results.append(elems)
+        return tuple(results)
 
-    blocked.stats = stats
-    return blocked, []
+    lane_fn.stats = stats
+    return lane_fn

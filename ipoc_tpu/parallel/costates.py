@@ -61,16 +61,9 @@ def par_costates(ocp: OCP, final_state, d: Derivatives):
         [jnp.swapaxes(d.fx, -1, -2), jnp.zeros_like(d.fx[:1])], axis=0
     )
     c = jnp.concatenate([d.cx, lam_T[None]], axis=0)
-    from ipoc_tpu.ops.pallas import use_pallas_scans
-
-    if use_pallas_scans(F.dtype, F.shape[-1]):
-        from ipoc_tpu.ops.pallas.scan_kernels import pallas_affine_scan
-
-        _, lams = pallas_affine_scan(F, c, reverse=True)
-    else:
-        # In a reverse scan fn receives (later-combination, earlier-element);
-        # we want earlier-composed-with-later, hence the argument swap.
-        _, lams = lax.associative_scan(
-            lambda a, b: affine_combine(b, a), (F, c), reverse=True, axis=0
-        )
+    # In a reverse scan fn receives (later-combination, earlier-element);
+    # we want earlier-composed-with-later, hence the argument swap.
+    _, lams = lax.associative_scan(
+        lambda a, b: affine_combine(b, a), (F, c), reverse=True, axis=0
+    )
     return lams

@@ -1,10 +1,11 @@
 """Multi-host initialization and mesh construction.
 
 The reference has no distributed backend of any kind (SURVEY §5.8).  This
-module provides the TPU-native multi-host entry: ``jax.distributed``
-initialization plus a global mesh over {batch (DCN x ICI), time (ICI)} laid
-out so that the inner-solve collectives (cross-shard scan combines,
-``psum`` merit reductions) ride ICI while only batch sharding crosses DCN.
+module provides the multi-host entry: ``jax.distributed`` initialization
+plus a global mesh over {batch, time} laid out so that the inner-solve
+collectives (cross-shard scan combines, ``psum`` merit reductions) stay
+among the GPUs of one host, joined by NVLink, while only batch sharding
+crosses hosts.
 
 On a single host these are no-ops / local meshes, so the same driver script
 runs everywhere.
@@ -22,8 +23,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize multi-host JAX (no-op if single-process).
 
-    On TPU pods with standard env configuration all arguments are inferred;
-    pass them explicitly for manual bring-up.
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly: nothing is inferred on a plain GPU host.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
@@ -37,11 +38,11 @@ def initialize(coordinator_address: str | None = None,
 
 def global_mesh(time: int = 1) -> Mesh:
     """Mesh over all devices: ('batch', 'time') with time sharding kept
-    inside a host (ICI) and batch spanning hosts (DCN x ICI).
+    inside a host (NVLink) and batch spanning hosts.
 
     Device order: jax.devices() enumerates host-major, so reshaping to
     (n_devices // time, time) keeps each solve's time shards on one host's
-    chips — cross-shard scan combines never cross DCN.
+    GPUs — cross-shard scan combines never leave the host.
     """
     devices = np.asarray(jax.devices())
     n = devices.size
@@ -57,10 +58,10 @@ def global_mesh(time: int = 1) -> Mesh:
         # when ``time`` divides the per-host device count — e.g. 8 local
         # devices with time=6 would put devices 6..11 (two hosts) in one
         # time group, silently moving every scan-combine collective onto
-        # DCN.
+        # the network between hosts.
         raise ValueError(
             f"time={time} does not divide the per-host device count "
-            f"{local}; time groups would straddle hosts (DCN)"
+            f"{local}; time groups would straddle hosts"
         )
     return Mesh(devices.reshape(n // time, time), ("batch", "time"))
 

@@ -1,6 +1,6 @@
 """Linear-Quadratic Tracking (LQT) subproblem: sequential and parallel passes.
 
-This module is the in-repo, TPU-native replacement for the reference's hard
+This module is the in-repo replacement for the reference's hard
 external dependency ``paroc`` (parallel-optimal-control), whose interface was
 recovered from its call sites (SURVEY §2.8; reference
 par_interior_point_newton.py:6-7,119-123 and examples/linear_mpc_parallel.py:6-8,
@@ -11,13 +11,13 @@ elements combined by an associative operator, giving an O(log T)-span
 backward pass; the forward pass is an affine-map associative scan sharing its
 element algebra with the costate scan (parallel/costates.py).
 
-Design notes (TPU-first):
+Design notes:
 
 * Both the sequential and the parallel backward passes derive their per-stage
   gains from ONE shared function (:func:`stage_gains`), so seq == par holds
   by construction and is unit-tested.
 * All combines are written as batched matmuls/einsums over the horizon axis —
-  XLA lowers them to batched MXU ops; no per-stage Python, no inner vmap.
+  XLA lowers them to batched ops; no per-stage Python, no inner vmap.
 * Positive-definiteness is detected via Cholesky success, not ``eigh``
   (see ops/linalg.py).
 
@@ -38,7 +38,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from ipoc_tpu.ops import linalg
-from ipoc_tpu.ops.pallas import use_pallas_scans
 from ipoc_tpu.parallel.costates import affine_combine
 from ipoc_tpu.problem import Derivatives, LinearizedOCP
 
@@ -252,18 +251,11 @@ def par_bwd_pass(lqt: LQT):
     ``feasible`` is the all-stages convexity flag.
     """
     elems = _elements(lqt)
-    if use_pallas_scans(elems.A.dtype, elems.A.shape[-1]):
-        from ipoc_tpu.ops.pallas.scan_kernels import pallas_value_scan
-
-        scanned = ValueElement(
-            *pallas_value_scan(elems.A, elems.b, elems.C, elems.eta, elems.J)
-        )
-    else:
-        # In a reverse scan fn receives (later-combination, earlier-element);
-        # value_combine wants (earlier, later), hence the argument swap.
-        scanned = lax.associative_scan(
-            lambda a, b: value_combine(b, a), elems, reverse=True, axis=0
-        )
+    # In a reverse scan fn receives (later-combination, earlier-element);
+    # value_combine wants (earlier, later), hence the argument swap.
+    scanned = lax.associative_scan(
+        lambda a, b: value_combine(b, a), elems, reverse=True, axis=0
+    )
     # scanned[k] spans stages [k, T); fold the terminal cost in with one
     # batched combine to obtain V_k for every k.
     eT = _terminal_element(lqt)
@@ -328,15 +320,10 @@ def par_fwd_pass(lqt: LQT, x0, Kx, d):
     e0 = F[0] @ x0 + e[0]
     F = F.at[0].set(jnp.zeros_like(F[0]))
     e = e.at[0].set(e0)
-    if use_pallas_scans(F.dtype, F.shape[-1]):
-        from ipoc_tpu.ops.pallas.scan_kernels import pallas_affine_scan
-
-        _, xs = pallas_affine_scan(F, e, reverse=False)
-    else:
-        # Prefix composition: combined = later(earlier(.)).
-        _, xs = lax.associative_scan(
-            lambda a, b: affine_combine(b, a), (F, e), axis=0
-        )
+    # Prefix composition: combined = later(earlier(.)).
+    _, xs = lax.associative_scan(
+        lambda a, b: affine_combine(b, a), (F, e), axis=0
+    )
     x = jnp.concatenate([x0[None], xs], axis=0)
     u = d - jnp.einsum("tij,tj->ti", Kx, x[:-1])
     return u, x
@@ -362,7 +349,7 @@ def newton_lqt(
 ) -> LQT:
     """Assemble the Newton-step LQT from costate-contracted stage data.
 
-    The TPU-native equivalent of the reference's ``noc_to_lqt``
+    The equivalent of the reference's ``noc_to_lqt``
     (par_interior_point_newton.py:50-84): per-stage references
     ``s = -(R - M^T Q^{-1} M)^{-1} ru`` and ``r = -Q^{-1} M s`` make the
     LQT's linear terms reproduce the Newton model's ``ru^T du`` term.

@@ -1,13 +1,13 @@
 """Device-mesh utilities and the cross-shard associative scan.
 
 The reference is single-device (SURVEY §5.8: no pmap/pjit/shard_map, no
-collectives of any kind).  This module supplies the TPU-native scaling layer:
+collectives of any kind).  This module supplies the scaling layer:
 
 * :func:`make_mesh` — build a ``jax.sharding.Mesh`` over {batch, time}.
 * :func:`sharded_associative_scan` — a two-level associative scan for use
   inside ``shard_map``: local O(log T_local) scan per shard, one
-  ``all_gather`` of per-shard aggregate elements over the mesh axis (rides
-  ICI), and a local fixup combine.  This is blockwise/ring-style sequence
+  ``all_gather`` of per-shard aggregate elements over the mesh axis
+  (NVLink between the GPUs of one host), and a local fixup combine.  This is blockwise/ring-style sequence
   parallelism transplanted to Riccati/costate elements (SURVEY §5.7).
 
 The combine convention everywhere is ``fn(earlier, later)`` where "earlier"
@@ -30,9 +30,11 @@ def make_mesh(batch: int = 1, time: int = 1,
               devices: Sequence[jax.Device] | None = None) -> Mesh:
     """Mesh over ('batch', 'time').
 
-    ``batch`` shards independent scenarios (data parallelism over DCN+ICI);
-    ``time`` shards the horizon of each solve (sequence parallelism over
-    ICI).  Total must equal the device count used.
+    ``batch`` shards independent scenarios (data parallelism);
+    ``time`` shards the horizon of each solve (sequence parallelism).
+    Total must equal the device count used.  The device list is reshaped
+    in order, which suits the GPUs of one host: NVLink joins them all to
+    all, so no placement is better than another.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = batch * time

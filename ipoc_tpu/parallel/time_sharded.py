@@ -2,8 +2,9 @@
 
 Shards the horizon axis of a single solve across devices: each device scans
 its local slice of Riccati/costate elements in O(log T_local) span, per-shard
-aggregates ride the ICI via one ``all_gather``, and a local fixup completes
-the global scan (SURVEY §5.7: "sharding the scan itself").
+aggregates cross devices via one ``all_gather`` (NVLink within a host), and
+a local fixup completes the global scan (SURVEY §5.7: "sharding the scan
+itself").
 
 These functions are written to run inside ``shard_map`` over a mesh axis
 named ``"time"`` with every (T, ...) array sharded along axis 0.  All
@@ -71,7 +72,7 @@ def par_bwd_pass_time_sharded(lqt: LQT, axis_name: str = TIME_AXIS):
     S_stage, v_stage = full.J, full.eta  # S_k, v_k for local stages k
 
     # stage_gains wants S_{k+1}, v_{k+1}: shift left across the shard
-    # boundary with a single ppermute (neighbor exchange over ICI).
+    # boundary with a single ppermute (neighbor exchange).
     S_next = shift_left_across_shards(S_stage, eT.J, axis_name)
     v_next = shift_left_across_shards(v_stage, eT.eta, axis_name)
 

@@ -1,6 +1,6 @@
 """Problem specification layer.
 
-TPU-native re-design of the reference problem containers
+Re-design of the reference problem containers
 (reference: noc/optimal_control_problem.py:5-30).
 
 Differences from the reference, by design:

@@ -8,12 +8,6 @@ from ipoc_tpu.solvers.ip_newton import (
     seq_fwd_newton,
     seq_interior_point_optimal_control,
 )
-from ipoc_tpu.solvers.packed_stream import (
-    PackedLane,
-    packed_lane_init,
-    packed_lane_iter,
-    solve_stream_packed,
-)
 from ipoc_tpu.solvers.stream import (
     MultigridSolution,
     StreamSolution,

@@ -1,8 +1,7 @@
 """Batched and mesh-sharded interior-point solves.
 
-The throughput path for the TPU build (SURVEY §7 L5, BASELINE north star:
->= 1e4 constrained cartpole H=100 IP solves/s on a v5p slice): the reference
-solves one problem at a time on one GPU; here thousands of scenarios
+The throughput path (SURVEY §7 L5): the reference solves one problem at a
+time on one GPU; here thousands of scenarios
 (initial states, warm starts) are vmapped into one XLA program and sharded
 over a device mesh with ``shard_map``.
 
@@ -11,8 +10,8 @@ automatically: the loop runs until every lane's predicate is false and
 per-lane updates are masked, so early-converged lanes idle until the slowest
 lane finishes — use the iteration caps in SolverConfig to bound tail latency.
 Cross-shard communication is one ``psum`` for aggregate iteration stats;
-each solve is otherwise shard-local (batch parallelism rides DCN/ICI only at
-dispatch boundaries).
+each solve is otherwise shard-local (batch parallelism crosses devices only
+at dispatch boundaries).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Interior-point differential dynamic programming (IP-DDP) baseline.
 
-TPU-native re-implementation of reference
+Re-implementation of reference
 noc/differential_dynamic_programming.py:28-208.  DDP differs from the Newton
 solvers in two ways: the second-order dynamics terms are contracted with the
 *value gradient* ``Vx`` (not the costates), and the trial trajectory comes

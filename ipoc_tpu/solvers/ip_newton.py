@@ -1,6 +1,6 @@
 """Interior-point Newton solvers: parallel-in-time and sequential.
 
-TPU-native re-implementations of the reference solvers with identical
+Re-implementations of the reference solvers with identical
 numerical semantics (reference: noc/par_interior_point_newton.py and
 noc/seq_interior_point_newton.py) but one shared derivative engine
 (ops/derivatives.py), one shared LM update (solvers/globalization.py), one
@@ -74,10 +74,9 @@ def _regularized(lin: LinearizedOCP, d: Derivatives, rp, scale_by_grad: bool,
 def _seq_trial_scan(lin_reg: LinearizedOCP, d: Derivatives, XT):
     """Sequential Newton trial as reverse/forward ``lax.scan``s.
 
-    Pure-JAX fallback for the fused sequential kernel
-    (ops/pallas/seq_newton_kernel.py); identical recursion (reference
-    seq_interior_point_newton.py:42-90) with the terminal Hessian passed
-    explicitly.  Returns ``(du, dx, pred_reduction, feasible)``.
+    The reference recursion (seq_interior_point_newton.py:42-90) with the
+    terminal Hessian passed explicitly.  Returns ``(du, dx,
+    pred_reduction, feasible)``.
     """
 
     def step(carry, inp):
@@ -114,19 +113,9 @@ def _seq_trial_scan(lin_reg: LinearizedOCP, d: Derivatives, XT):
 
 def _costates(ocp: OCP, x_last, d: Derivatives, cfg: SolverConfig):
     """Costate recursion matched to the step evaluator: parallel-in-time
-    scan for ``newton_impl="par"``; for ``"seq"`` the sequential recursion
-    (fused batch-in-lanes kernel on TPU/f32, reverse scan elsewhere) —
-    identical values either way."""
+    scan for ``newton_impl="par"``, reverse scan for ``"seq"`` — identical
+    values either way."""
     if cfg.newton_impl == "seq":
-        from ipoc_tpu.ops.pallas import use_seq_newton
-
-        if use_seq_newton(d.cx.dtype, d.cx.shape[-1]):
-            from ipoc_tpu.ops.pallas.seq_newton_kernel import (
-                seq_costates_fused,
-            )
-
-            lam_T = jax.grad(ocp.final_cost)(x_last)
-            return seq_costates_fused(d.cx, d.fx, lam_T)
         return seq_costates(ocp, x_last, d)
     return par_costates(ocp, x_last, d)
 
@@ -140,17 +129,12 @@ def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
 
     Step evaluator (cfg.newton_impl):
 
-    * ``"par"`` — parallel-in-time, O(log T) span: on TPU/f32 the whole
-      trial runs as ONE fused Pallas kernel (ops/pallas/newton_kernel.py);
-      elsewhere it is the newton_lqt -> par_bwd_pass -> par_fwd_pass
-      pipeline.  The latency winner for single solves.
-    * ``"seq"`` — sequential-in-time, O(T) work: on TPU/f32 a fused
-      batch-in-lanes kernel (ops/pallas/seq_newton_kernel.py); elsewhere
-      reverse/forward scans.  The throughput winner for batched solves,
-      where the scenario batch (not the horizon) fills the VPU.
+    * ``"par"`` — parallel-in-time, O(log T) span: the newton_lqt ->
+      par_bwd_pass -> par_fwd_pass pipeline of associative scans.  For
+      single solves, where the horizon is the only parallelism.
+    * ``"seq"`` — sequential-in-time, O(T) work: reverse/forward scans.
+      For batched solves, where the scenario batch fills the device.
     """
-    from ipoc_tpu.ops.pallas import use_fused_newton, use_seq_newton
-
     if cfg.newton_impl == "fused":
         raise ValueError(
             "newton_impl='fused' evaluates the whole trial in one fused "
@@ -175,23 +159,7 @@ def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
         XT = hessian(ocp.final_cost)(x[-1])
 
     if cfg.newton_impl == "seq":
-        if use_seq_newton(lin_reg.Q.dtype, lin_reg.Q.shape[-1]):
-            from ipoc_tpu.ops.pallas.seq_newton_kernel import seq_newton_trial
-
-            du, dx, pred_reduction, feasible = seq_newton_trial(
-                lin_reg.r, lin_reg.Q, lin_reg.R, lin_reg.M, d.fx, d.fu, XT
-            )
-            return dx, du, pred_reduction, feasible, lin.r
-        # Off-TPU (tests, fallback): plain reverse/forward scans.
         du, dx, pred_reduction, feasible = _seq_trial_scan(lin_reg, d, XT)
-        return dx, du, pred_reduction, feasible, lin.r
-
-    if use_fused_newton(lin_reg.Q.dtype, lin_reg.Q.shape[-1]):
-        from ipoc_tpu.ops.pallas.newton_kernel import fused_newton_step
-
-        du, dx, pred_reduction, feasible = fused_newton_step(
-            lin_reg.r, lin_reg.Q, lin_reg.R, lin_reg.M, d.fx, d.fu, XT
-        )
         return dx, du, pred_reduction, feasible, lin.r
 
     lqt = newton_lqt(lin_reg, d, XT)
@@ -312,20 +280,17 @@ def _trial_eval(ocp: OCP, x, u, bp, rp, cfg: SolverConfig):
 
     ``cfg.newton_impl == "fused"`` routes the WHOLE evaluation — model
     derivatives, costates, Riccati, trial rollout, both cost evaluations,
-    and the feasibility check — through the two-launch fused Pallas kernel
-    (ops/pallas/fused_iter_kernel.py) that re-derives the model in-kernel;
-    off-TPU (or f64) it falls back to an identical unfused composition.
+    and the feasibility check — through one per-lane op
+    (ops/pallas/fused_iter_kernel.py make_fused_iter): under vmap on the
+    GPU in float32 two Triton launches that re-derive the model in-kernel,
+    elsewhere the identical plain composition.
     """
     if cfg.newton_impl == "ddp":
         # DDP as a throughput path: the flat/stream executors drive DDP
         # lanes through this evaluator (reference ships DDP as a peer
         # solver, ddp:98-186; here it gets the same batched machinery as
-        # the Newton step).  On TPU/f32 the whole evaluation runs as the
-        # ONE-launch merged kernel in DDP mode (value-gradient-contracted
-        # backward sweep + nonlinear re-rollout in-kernel); elsewhere the
-        # custom_vmap falls back to the unfused composition
-        # (_fused_ddp_reference: ip_ddp semantics, reg scale hoisted out).
-        from ipoc_tpu.ops.pallas.fused_iter_kernel import make_fused_ddp_iter
+        # the Newton step): ip_ddp semantics with the reg scale hoisted out.
+        from ipoc_tpu.ops.pallas.fused_iter_kernel import _fused_ddp_reference
 
         cu = jax.vmap(
             lambda xx, uu: grad(ocp.stage_cost, 1)(xx, uu, bp)
@@ -336,9 +301,8 @@ def _trial_eval(ocp: OCP, x, u, bp, rp, cfg: SolverConfig):
             jnp.linalg.norm(cu),
             jnp.asarray(cfg.reg_scale_floor, cu.dtype),
         )
-        fused = make_fused_ddp_iter(ocp)
         (temp_x, temp_u, cost, nc_raw, max_c, pred, bwd_feasible,
-         Hu_norm) = fused(x, u, bp, reg)
+         Hu_norm) = _fused_ddp_reference(ocp, x, u, bp, reg)
         new_cost = jnp.where(max_c <= 0.0, nc_raw, jnp.inf)
         return cost, temp_x, temp_u, pred, bwd_feasible, Hu_norm, new_cost
 
@@ -469,33 +433,12 @@ class FlatLane(NamedTuple):
     done: jax.Array      # bool — solve complete (u holds the solution)
 
 
-def _lane_rollout(ocp: OCP, cfg: SolverConfig):
-    """Open-loop rollout for the flat-mode lane paths: with the fused
-    evaluators (Newton and DDP) it is the last per-iteration XLA scan, so
-    it dispatches to the one-launch Pallas rollout kernel under vmap."""
-    if cfg.newton_impl in ("fused", "ddp"):
-        from ipoc_tpu.ops.pallas.fused_iter_kernel import make_fused_rollout
-
-        return make_fused_rollout(ocp)
-    return lambda u, x0: rollout(ocp.dynamics, u, x0)
-
-
-def _lane_transition(ocp: OCP, cfg: SolverConfig):
-    """Two-candidate stage transition (plain warm start + central-path
-    prediction), both rollouts and barrier costs in ONE Pallas launch on the
-    fused paths — so the stage predictor costs no extra launch over the
-    plain per-iteration transition rollout."""
-    if cfg.newton_impl in ("fused", "ddp"):
-        from ipoc_tpu.ops.pallas.fused_iter_kernel import make_fused_transition
-
-        return make_fused_transition(ocp)
-
-    def f(u, up, x0, bp):
-        xa = rollout(ocp.dynamics, u, x0)
-        xb = rollout(ocp.dynamics, up, x0)
-        return xa, xb, ocp.total_cost(xa, u, bp), ocp.total_cost(xb, up, bp)
-
-    return f
+def _lane_transition(ocp: OCP, u, up, x0, bp):
+    """Two-candidate stage transition: rollouts and barrier costs of the
+    plain warm start ``u`` and the central-path prediction ``up``."""
+    xa = rollout(ocp.dynamics, u, x0)
+    xb = rollout(ocp.dynamics, up, x0)
+    return xa, xb, ocp.total_cost(xa, u, bp), ocp.total_cost(xb, up, bp)
 
 
 def flat_lane_init(ocp: OCP, controls, initial_state, cfg: SolverConfig,
@@ -512,7 +455,7 @@ def flat_lane_init(ocp: OCP, controls, initial_state, cfg: SolverConfig,
         bp0 = jnp.asarray(cfg.bp_init, dtype)
     if rp0 is None:
         rp0 = jnp.asarray(cfg.reg_init, dtype)
-    x0_traj = _lane_rollout(ocp, cfg)(controls, initial_state)
+    x0_traj = rollout(ocp.dynamics, controls, initial_state)
     start_ok = jnp.isfinite(
         ocp.total_cost(x0_traj, controls, bp0)
     )
@@ -610,8 +553,8 @@ def flat_lane_iter(ocp: OCP, lane: FlatLane, cfg: SolverConfig,
         # feasible by construction (feasibility is bp-independent).
         gamma = jnp.asarray(1.0 / cfg.bp_decay, dtype)
         u_pred = u + gamma * (u - lane.u_prev)
-        x_plain, x_pred, c_plain, c_pred = _lane_transition(ocp, cfg)(
-            u, u_pred, lane.x0, bp_next
+        x_plain, x_pred, c_plain, c_pred = _lane_transition(
+            ocp, u, u_pred, lane.x0, bp_next
         )
         # Only from the second transition on: at the first, u_prev is the
         # initial guess, which is not a central-path point.  Compare against
@@ -626,7 +569,7 @@ def flat_lane_iter(ocp: OCP, lane: FlatLane, cfg: SolverConfig,
         x = jnp.where(take, x_pred, jnp.where(roll, x_plain, x))
         u = jnp.where(take, u_pred, u)
     else:
-        x = jnp.where(roll, _lane_rollout(ocp, cfg)(u, lane.x0), x)
+        x = jnp.where(roll, rollout(ocp.dynamics, u, lane.x0), x)
     bp = jnp.where(advance, bp_next, bp)
     stage_reg = (cfg.reg_init if cfg.reg_stage_init is None
                  else cfg.reg_stage_init)
@@ -656,7 +599,7 @@ def _newton_flat_single(ocp: OCP, controls, initial_state, cfg: SolverConfig):
     The payoff is under ``vmap``: stage transitions no longer synchronize
     across lanes, so a batch pays ``max_lanes(total iterations)`` in lockstep
     instead of ``sum_stages max_lanes(stage iterations)`` — a pure
-    tail-latency win for the batched-throughput path (docs/PERFORMANCE.md).
+    tail-latency win for the batched-throughput path.
     See :func:`flat_lane_iter` for the per-iteration semantics.
     """
     total_cap = jnp.asarray(flat_total_cap(cfg), jnp.int32)

@@ -3,8 +3,8 @@
 The vmapped batch solvers (solvers/batched.py) pay the LOCKSTEP MAXIMUM of
 per-scenario iteration counts: every lane idles until the slowest lane of the
 batch finishes (and, in staged barrier mode, at every stage boundary).  On
-cold-started cartpole batches the lockstep max is ~2.6x the median
-(docs/PERFORMANCE.md) — that factor is pure idle work.
+cold-started batches the lockstep maximum is a multiple of the median
+iteration count, and that factor is pure idle work.
 
 ``solve_stream`` processes a POOL of N scenarios with B resident lanes in a
 two-level loop: an inner ``lax.while_loop`` advances every live lane by up
@@ -19,7 +19,7 @@ re-fill of fresh scenarios into converged lanes" throughput strategy
 early-converged lanes).
 
 The reference has no batching of any kind (SURVEY §2: one solve per call,
-single GPU); this module is new TPU-native surface.
+single GPU); this module is new surface.
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ def solve_stream(
     bp_init=None,    # optional (N,) per-scenario barrier start (else cfg's)
     rp_init=None,    # optional (N,) per-scenario initial LM damping
     inner_unroll: int = 1,
-    warm_transfer: bool = False,
 ) -> StreamSolution:
     """Solve N scenarios with B = min(lanes, N) resident lanes, refilling.
 
@@ -79,9 +78,8 @@ def solve_stream(
     outer loop then captures finished scenarios to the output buffer and
     refills those lanes from the pool.  Capture/refill (full-batch output
     scatter, pool gathers, fresh-lane rollouts) is thus amortized over
-    ``refill_every`` steps, and the hot inner step carries no conditional —
-    a per-step ``lax.cond`` was measured at ~25% overhead even when never
-    taken (docs/PERFORMANCE.md).  A finished lane idles at most
+    ``refill_every`` steps, and the hot inner step carries no conditional.
+    A finished lane idles at most
     ``refill_every - 1`` steps; every other lane still advances, so
     per-scenario results are schedule-independent.
     """
@@ -93,34 +91,6 @@ def solve_stream(
     N, T, nu = controls.shape
     B = min(lanes, N)
     dtype = controls.dtype
-
-    # Packed-layout fast path (solvers/packed_stream.py): same scheduling
-    # and per-lane semantics, but the lane state stays in the kernels'
-    # (C, T, rows, S, LANES) layout across iterations — no per-iteration
-    # pack/unpack relayout, no padded-tile glue, in-kernel ||cu|| —
-    # measured cure for the overhead-bound step (docs/PERFORMANCE.md).
-    # Kill switch: IPOC_PACKED_STREAM=0.  NOTE: this dispatch (and the
-    # IPOC_PACKED_DDP / IPOC_PACKED_MERGED reads inside) binds at TRACE
-    # time — flipping the env var after a jitted caller has traced has no
-    # effect on the cached executable; re-jit (or clear jax caches) to
-    # switch variants.
-    from ipoc_tpu.solvers.packed_stream import (
-        packed_stream_eligible,
-        solve_stream_packed,
-    )
-
-    if packed_stream_eligible(cfg, dtype, initial_states.shape[-1], B,
-                              T=T, nu=nu):
-        return solve_stream_packed(
-            ocp, controls, initial_states, cfg, lanes=lanes,
-            refill_every=refill_every, bp_init=bp_init, rp_init=rp_init,
-            inner_unroll=inner_unroll, warm_transfer=warm_transfer,
-        )
-    if warm_transfer:
-        raise ValueError(
-            "warm_transfer requires the packed stream path "
-            "(solvers/packed_stream.py) — not eligible for this config"
-        )
 
     if bp_init is None:
         bp_init = jnp.full((N,), cfg.bp_init, dtype)
@@ -151,15 +121,9 @@ def solve_stream(
 
         # Inner loop: up to K bare Newton-advance steps (no capture/refill
         # machinery on this path), exiting early once every live lane is
-        # finished.  `active` is constant within the round.  (A plain
-        # fori_loop without the early-exit reduction measured 6% SLOWER
-        # end-to-end — the predicate pays for itself.)  The body can advance
-        # ``inner_unroll`` masked sub-steps per while iteration (per-lane
-        # results unchanged; early-exit granularity coarsens).  Measured:
-        # unrolling does NOT pay on this platform (1/2/4/8 -> 153.2/149.1/
-        # 130.3/142.5k solves/s) — a micro-probe had suggested a large fixed
-        # per-while-iteration cost, but end-to-end the unrolled bodies are
-        # slower; default stays 1.
+        # finished.  `active` is constant within the round.  The body can
+        # advance ``inner_unroll`` masked sub-steps per while iteration
+        # (per-lane results unchanged; early-exit granularity coarsens).
         def inner_cond(c):
             ln, s = c
             # s + unroll <= K: never overshoot the K-step budget (an
@@ -256,8 +220,8 @@ def solve_stream_multigrid(
     """Coarse-to-fine (multigrid-in-time) streaming solve.
 
     Cold-start interior-point work is dominated by the first barrier stage
-    (measured ~66% of cartpole H=100 iterations, docs/PERFORMANCE.md), and a
-    Newton iteration costs O(T).  So: solve every scenario on a ``coarsen``-x
+    (about two thirds of cartpole H=100 iterations), and a Newton iteration
+    costs O(T).  So: solve every scenario on a ``coarsen``-x
     coarser time grid first (``ocp_coarse`` must be the same continuous
     problem discretized at ``coarsen * dt``; iterations cost 1/coarsen as
     much), zero-order-hold interpolate the coarse solution, and re-enter the
@@ -272,19 +236,15 @@ def solve_stream_multigrid(
     Solutions satisfy the same final-stage convergence criteria as
     :func:`solve_stream`; on nonconvex problems a small fraction of
     scenarios converges to a different local basin than the single-grid
-    path.  With the default (same-evaluator) coarse solve those switched
-    lanes averaged +2.1% HIGHER raw cost (BENCH_r02/r03 gates) — the
-    basin choice is decided at the COARSE level, and the fix is
-    ``coarse_impl="ddp"``: DDP's nonlinear closed-loop re-rollouts land
-    in quality-neutral basins (r4 measured: switch 2.36% -> 1.68%,
-    signed delta +2.1% -> -0.39% +/- 0.15% SEM, a symmetric win/loss mix
-    — docs/PERFORMANCE.md "Round 4"; the bench mg mode defaults to it).
-    Use :func:`solve_stream` (single grid) when per-scenario reference
-    semantics matter more than throughput.  Measured end-to-end
-    equivalent-iteration gain: ~1.8x.
+    path.  The basin choice is decided at the COARSE level: with the
+    same-evaluator coarse solve the switched lanes land at higher raw cost
+    on average, while ``coarse_impl="ddp"`` (DDP's nonlinear closed-loop
+    re-rollouts) lands them in quality-neutral basins; the bench mg mode
+    defaults to it.  Use :func:`solve_stream` (single grid) when
+    per-scenario reference semantics matter more than throughput.
 
-    This is new TPU-native surface (no reference analogue; the reference
-    solves one problem per call, SURVEY §2).
+    This is new surface (no reference analogue; the reference solves one
+    problem per call, SURVEY §2).
     """
     N, T, nu = controls.shape
     if T % coarsen != 0:
@@ -310,7 +270,7 @@ def solve_stream_multigrid(
     # ``coarse_solver`` overrides the coarse-level solve — e.g. ANOTHER
     # multigrid driver, composing a cascadic multi-level scheme (the
     # coarsest level solves the cold barrier stages, intermediate levels
-    # advance the barrier at 1/coarsen cost; scripts/mg3_probe.py).
+    # advance the barrier at 1/coarsen cost).
     # Signature: (ocp_c, u_c, x0, cfg_c, lanes, refill_every,
     # inner_unroll) -> solution with .controls/.iterations.
     if coarse_solver is None:

@@ -7,7 +7,7 @@ nonlinear stage rollouts — runs inside ONE ``shard_map`` over a mesh axis
 named ``"time"``, so horizons far beyond one device's memory/compute solve
 as a single program.
 
-Per-iteration communication is O(1) per shard and rides the ICI: one
+Per-iteration communication is O(1) per shard (NVLink within a host): one
 all_gather of per-shard scan aggregates in each of the three sharded scans
 (costates, Riccati backward, linear forward — parallel/sharding.py), two
 ppermute neighbor exchanges (stage shifting), and scalar psum/pmax
@@ -381,7 +381,7 @@ def ip_newton_batch_time_sharded(
 ):
     """Full IP solve on a ('batch', 'time') mesh: scenarios data-parallel
     over ``batch_axis``, each scenario's horizon sharded over ``axis_name``
-    (ICI) — SURVEY §5.7 + §5.8 composed in ONE shard_map.
+    — SURVEY §5.7 + §5.8 composed in ONE shard_map.
 
     Control flow must be IDENTICAL on every device of the mesh (divergent
     while-loop trip counts across batch shards deadlock the time-axis
@@ -393,7 +393,7 @@ def ip_newton_batch_time_sharded(
     sequence, same stage transitions; pinned by
     tests/test_time_sharded_solve.py).
 
-    ``cfg.stage_predictor`` is supported (r5, VERDICT r4 #6): the
+    ``cfg.stage_predictor`` is supported: the
     central-path extrapolation adds ONE more masked-unconditional
     candidate rollout + cost psum per iteration — the same collective
     structure as the stage-opening rollout, so lockstep across the mesh

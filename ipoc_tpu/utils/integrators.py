@@ -1,6 +1,6 @@
 """Integrators and trajectory rollout.
 
-TPU-native equivalents of reference noc/utils.py:8-63.  The rollout fixes the
+Equivalents of reference noc/utils.py:8-63.  The rollout fixes the
 reference's double-evaluation quirk (utils.py:58-59 calls ``dynamics`` twice
 per step and relies on XLA CSE to dedupe).
 """

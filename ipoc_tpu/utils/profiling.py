@@ -1,7 +1,7 @@
 """Profiling hooks: jax.profiler traces around solves.
 
 The reference's only tracing is host wall-clock timing (SURVEY §5.1).  These
-helpers capture XLA/TPU traces viewable in Perfetto/TensorBoard.
+helpers capture XLA device traces viewable in Perfetto/TensorBoard.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""Newton-multigrid switched-lane quality diagnosis (VERDICT r3 #2).
+"""Newton-multigrid switched-lane quality diagnosis.
 
 Measures, for several (coarse_impl, fine_impl) multigrid variants, the
 basin-switch fraction and the SIGNED mean relative cost delta on switched
 lanes vs the faithful single-grid Newton stream — the bench quality gate's
-definition — plus drain throughput.  DDP's multigrid is quality-neutral on
-its switched lanes (-0.015%, BENCH_ddp_r03.json) while Newton's books
-+2.1%; the candidate mechanism is DDP's nonlinear closed-loop re-rollout.
+definition — plus drain throughput.  The question it answers: whether a
+DDP coarse level (nonlinear closed-loop re-rollouts) lands switched lanes
+in quality-neutral basins where the Newton coarse level does not.
 
 Usage: python scripts/mg_quality.py [B] [POOLX] [variants...]
   variants: comma-pairs like fused,fused fused,ddp ddp,fused ddp,ddp

@@ -1,9 +1,9 @@
-"""f32-vs-f64 agreement pins (VERDICT r2 #6).
+"""f32-vs-f64 agreement pins.
 
-The sweep-level evidence lives in examples/sweep_agreement.py +
-bench_results/*_agreement.jsonl (48 rows with gated ``max_abs_dx`` and
-``bound_active_du`` columns).  This slow test pins the same three gates on
-the headline config so the claim is continuously asserted:
+The sweep-level check is examples/sweep_agreement.py (gated
+``max_abs_dx`` and ``bound_active_du`` columns per configuration).  This
+slow test pins the same three gates on the headline config so the claim
+is continuously asserted:
 
 * relative converged-cost delta (the flat-valley-proof optimality gate),
 * state-trajectory deviation through the f64 dynamics,

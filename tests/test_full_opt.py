@@ -4,8 +4,8 @@ tests/conftest.py turns on ``jax_disable_most_optimizations`` for the whole
 default tier (the suite is compile-count bound; results are checked by
 explicit tolerances, so the de-optimized compiler is safe there and ~2x
 faster).  That leaves a hole: a regression that only manifests under full
-XLA optimization (fusion/layout dependence, or the compile-time blowup
-class documented in docs/PERFORMANCE.md) would pass every default-tier
+XLA optimization (fusion/layout dependence, or a compile-time blowup)
+would pass every default-tier
 test.  This smoke test closes it: one small end-to-end batched IP solve is
 compiled and run under the FULL optimization pipeline and pinned against
 the de-optimized result.

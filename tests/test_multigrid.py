@@ -44,8 +44,8 @@ def test_multigrid_matches_single_grid_optimum():
     np.testing.assert_allclose(c_mg, c_ref, rtol=1e-4)
     assert np.isfinite(np.asarray(mg.controls)).all()
     # the fine level must do less work than the single grid (the big wins
-    # show on cold-start cartpole H=100 on TPU — docs/PERFORMANCE.md; this
-    # tiny f64 pendulum only checks the mechanism end-to-end)
+    # show on cold-start cartpole H=100; this tiny f64 pendulum only checks
+    # the mechanism end-to-end)
     assert (np.asarray(mg.iterations).mean()
             < np.asarray(ref.iterations).mean())
 
@@ -144,9 +144,9 @@ def test_multigrid_unicycle_state_constraint():
 
 
 def test_multigrid_cartpole_basin_switch_bound():
-    """Pin the multigrid quality caveat with a bound (docs/PERFORMANCE.md:
-    ~2.6% of cold-start cartpole H=100 scenarios land in a different local
-    basin than the single-grid stream).  On this 32-scenario CPU sample the
+    """Pin the multigrid quality caveat with a bound (a few per cent of
+    cold-start cartpole H=100 scenarios land in a different local basin
+    than the single-grid stream).  On this 32-scenario CPU sample the
     basin-switch fraction must stay <= 4/32 and every basin-matched
     scenario's converged raw cost must agree to 1e-4 relative.  bench.py
     emits the full-pool version of these statistics in its JSON."""

@@ -79,7 +79,7 @@ def test_fused_kernel_interpret_nu2():
     bp = jnp.full((B,), 0.1, jnp.float32)
     reg = jnp.full((B,), 3.0, jnp.float32)
     with jax.enable_x64(False):
-        ker = fused_newton_iter_batched(ocp, X, u0, bp, reg, sublanes=1,
+        ker = fused_newton_iter_batched(ocp, X, u0, bp, reg, block_lanes=4,
                                         interpret=True)
         ref = jax.vmap(lambda x, u, b, r: _fused_reference(ocp, x, u, b, r)
                        )(X, u0, bp, reg)

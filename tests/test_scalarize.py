@@ -1,12 +1,13 @@
-"""Scalar-DAG lifting (ops/pallas/scalarize.py) vs vector block lifting.
+"""Scalar-DAG lifting (ops/pallas/scalarize.py) vs the plain functions.
 
-The fused-iteration kernels dispatch through ``_lift`` which prefers
-:func:`scalar_lift`; these tests pin the scalarized evaluation to the
-block-lifted evaluation of the same per-element functions (which is itself
-pinned to the unfused reference composition by test_fused_iter.py), across
+The fused lane-iteration kernel evaluates the model's per-element stage
+functions through :func:`scalar_lift`; these tests pin the lifted
+evaluation on lane vectors to the plain function under ``vmap``, across
 every model family and every lifted function, and check the structural
 simplification actually fires (op counts well below the raw eqn counts).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,6 @@ import pytest
 
 from ipoc_tpu.models import cartpole, pendulum, quadrotor
 from ipoc_tpu.ops.pallas.fused_iter_kernel import (
-    _block_lift,
     _stage_bwd_fn,
     _stage_fwd_fn,
     _term_fn,
@@ -23,38 +23,41 @@ from ipoc_tpu.ops.pallas.fused_iter_kernel import (
 )
 from ipoc_tpu.ops.pallas.scalarize import scalar_lift
 
-S, L = 2, 128
+L = 16
 MODELS = {"cartpole": (cartpole, 1), "pendulum": (pendulum, 1),
           "quadrotor": (quadrotor, 2)}
+
+
+def _lanes(a):
+    """(L,) + shape array -> row-major list of (L,) lane vectors."""
+    return list(jnp.reshape(a, (a.shape[0], -1)).T)
 
 
 def _compare(fn, shapes, seed=0):
     rng = np.random.RandomState(seed)
     sds = [jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes]
     with jax.enable_x64(False):
-        blk_fn, consts = _block_lift(fn, *sds)
-        sc_fn, sc_consts = scalar_lift(fn, *sds)
-        assert sc_consts == []
-        args = [jnp.asarray(rng.uniform(0.05, 0.5, s + (S, L)), jnp.float32)
+        lane_fn = scalar_lift(fn, *sds)
+        args = [jnp.asarray(rng.uniform(0.05, 0.5, (L,) + s), jnp.float32)
                 for s in shapes]
-        cargs = [jnp.broadcast_to(jnp.reshape(c, (-1,))[:, None, None],
-                                  (c.size, S, L)) for c in consts]
-        ref = blk_fn(*args, *cargs)
-        got = sc_fn(*args)
+        got = lane_fn(*[_lanes(a) for a in args])
+        ref = jax.vmap(fn)(*args)
     if not isinstance(ref, tuple):
-        ref, got = (ref,), (got,)
+        ref = (ref,)
+    assert len(got) == len(ref)
     for i, (r, g) in enumerate(zip(ref, got)):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=2e-5, atol=2e-5,
+        want = np.asarray(r).reshape(L, -1).T
+        np.testing.assert_allclose(np.stack([np.asarray(v) for v in g]),
+                                   want, rtol=2e-5, atol=2e-5,
                                    err_msg=f"output {i}")
-    return sc_fn.stats
+    return lane_fn.stats
 
 
 @pytest.mark.parametrize("name", [
     pytest.param(n, marks=pytest.mark.smoke) if n == "pendulum" else n
     for n in sorted(MODELS)
 ])
-def test_scalarize_matches_block_lift(name):
+def test_scalarize_matches_plain(name):
     model, nu = MODELS[name]
     ocp = model.make_ocp(0.01)
     nx = model.initial_state(jnp.float32).shape[0]
@@ -99,15 +102,13 @@ def test_scalarize_integer_bitwise_and_div():
     sds = jax.ShapeDtypeStruct((4,), jnp.float32)
     sdu = jax.ShapeDtypeStruct((1,), jnp.float32)
     with jax.enable_x64(False):
-        sc_fn, _ = scalar_lift(f, sds, sdu)
-        x = jnp.broadcast_to(
-            jnp.arange(3.0, 7.0, dtype=jnp.float32)[:, None, None],
-            (4, S, L))
-        u = jnp.zeros((1, S, L), jnp.float32)
-        got = sc_fn(x, u)
-        ref = jax.vmap(jax.vmap(f, in_axes=(-1, -1), out_axes=-1),
-                       in_axes=(-1, -1), out_axes=-1)(x, u)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+        lane_fn = scalar_lift(f, sds, sdu)
+        x = jnp.broadcast_to(jnp.arange(3.0, 7.0, dtype=jnp.float32), (L, 4))
+        u = jnp.zeros((L, 1), jnp.float32)
+        (got,) = lane_fn(_lanes(x), _lanes(u))
+        ref = jax.vmap(f)(x, u)
+    np.testing.assert_array_equal(np.stack([np.asarray(v) for v in got]),
+                                  np.asarray(ref).T)
 
 
 def test_scalarize_imports_standalone():
@@ -119,6 +120,7 @@ def test_scalarize_imports_standalone():
     r = subprocess.run(
         [sys.executable, "-c",
          "import ipoc_tpu.ops.pallas.scalarize as m; print(m.__name__)"],
-        capture_output=True, text=True, cwd="/root/repo", timeout=300,
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert r.returncode == 0, r.stderr

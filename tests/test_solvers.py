@@ -156,7 +156,7 @@ def test_terminal_hessian_quirk_mode(pendulum_problem):
 
 
 def test_f32_solve_finite(pendulum_problem):
-    """The TPU dtype path (f32) converges NaN-free."""
+    """The accelerator dtype path (f32) converges NaN-free."""
     ocp, u0, x0 = pendulum_problem
     u32, it = ipoc_tpu.par_interior_point_optimal_control(
         ocp, u0.astype(jnp.float32), x0.astype(jnp.float32),

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 import ipoc_tpu
-from ipoc_tpu.models import pendulum
+from ipoc_tpu.models import cartpole, pendulum, quadrotor
 from ipoc_tpu.solvers.batched import make_batch, solve_batch
 from ipoc_tpu.solvers.stream import solve_stream
 
@@ -53,6 +53,31 @@ def test_stream_matches_flat(scenario_pool, lanes):
     np.testing.assert_allclose(np.asarray(sol.controls), u_ref,
                                rtol=1e-12, atol=1e-12)
     np.testing.assert_array_equal(np.asarray(sol.iterations), it_ref)
+
+
+@pytest.mark.parametrize("model", [pendulum, cartpole, quadrotor],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_stream_equals_flat_solver_per_scenario(model):
+    """The production stream config (fused evaluator, stage predictor)
+    gives every scenario exactly what the flat single solve gives it."""
+    nu = 2 if model is quadrotor else 1
+    ocp = model.make_ocp(0.05 if model is quadrotor else 0.1)
+    x0 = model.initial_state(jnp.float64)
+    u0, x0b = make_batch(jax.random.PRNGKey(4), x0, 5, 10, nu,
+                         state_scale=0.05, control_scale=0.1,
+                         dtype=jnp.float64)
+    if model is quadrotor:
+        u0 = u0 + quadrotor.hover_controls(10, jnp.float64)[None]
+    cfg = ipoc_tpu.BATCH_CONFIG.replace(barrier_mode="flat", bp_min=4.1e-3)
+    sol = jax.jit(lambda u, x: solve_stream(ocp, u, x, cfg, lanes=2,
+                                            refill_every=3))(u0, x0b)
+    one = jax.jit(lambda u, x: ipoc_tpu.par_interior_point_optimal_control(
+        ocp, u, x, cfg))
+    for i in range(u0.shape[0]):
+        u_i, it_i = one(u0[i], x0b[i])
+        np.testing.assert_allclose(np.asarray(sol.controls[i]),
+                                   np.asarray(u_i), rtol=1e-12, atol=1e-12)
+        assert int(sol.iterations[i]) == int(it_i) > 0
 
 
 @pytest.mark.parametrize("every", [
